@@ -1,0 +1,628 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
+
+    python3 chip_smoke.py
+
+Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` with
+``nvcc``, holds each kernel against its plain PyTorch version on the card
+(exact equality), drives the port's main path — ``repro_torch.dbscan(...,
+algorithm="auto")`` — at full size on two scenarios and on the tiled path,
+checks the results against a second backend and a blocked numpy oracle,
+and shows that every walk and tile of the main path ran as a kernel.
+
+    python3 chip_smoke.py --profile    # adds a per-kernel time breakdown
+
+Output: one line per phase; then one JSON line with every kernel's launch
+count, error against its plain version and timings; and as the last line
+``{"ok": true, "device": {...}}``. Any failure raises (exit code 1) before
+the last line is printed. Without a CUDA device it exits with code 2 and
+prints no result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+if not torch.cuda.is_available():
+    sys.stderr.write("chip_smoke: no CUDA device; nothing was run\n")
+    sys.exit(2)
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import repro_torch  # noqa: E402
+from repro_torch import _build  # noqa: E402
+from repro_torch.core import fdbscan, grid, lbvh, traversal  # noqa: E402
+from repro_torch.core import validate  # noqa: E402
+from repro_torch.data import pointclouds  # noqa: E402
+from repro_torch.kernels import pairwise, ref  # noqa: E402
+from repro_torch.kernels import traverse as kt  # noqa: E402
+
+DEV = torch.device("cuda", 0)
+# H100 SXM published peaks (NVIDIA data sheet): HBM rate and float32 rate
+# outside the tensor cores; every bound below is against these.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
+
+# The repo's phase-cost scenarios (benchmarks/bench_phase_cost.py) at full
+# scale, eps scaled from n = 16,384 so the neighbourhood size stays the same:
+# (dataset, n, eps, min_pts)
+MAIN = [("hacc_like", 2_097_152, 0.00595, 5),
+        ("portotaxi_like", 1_048_576, 0.00125, 50)]
+# kernel-against-plain checks of the walk with synthetic masks: densebox
+# indexes of both scenarios at 262,144 points (d = 3 and d = 2), eps scaled
+# like the main path's
+WALK_CHECK = [("hacc_like", 262_144, 0.0119, 5),
+              ("portotaxi_like", 262_144, 0.0025, 50)]
+TILE_SHAPES = [(1000, 1000), (130, 257), (7, 5)]
+TILED_N = 1000
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"chip_smoke: {what}")
+
+
+def say(phase: str, **kv) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
+          flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up,
+    timed with CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def reset_counts() -> None:
+    kt.walk.launches = 0
+    pairwise.pairwise_count.launches = 0
+    pairwise.pairwise_minlabel.launches = 0
+    traversal.traverse.runs = 0
+
+
+def counts() -> dict:
+    return {"walk": kt.walk.launches,
+            "pairwise_count": pairwise.pairwise_count.launches,
+            "pairwise_minlabel": pairwise.pairwise_minlabel.launches,
+            "plain_walk_runs": traversal.traverse.runs}
+
+
+def max_abs_err(pairs) -> float:
+    err = 0.0
+    for a, b in pairs:
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"kernel/plain outputs differ in type or shape: "
+              f"{a.dtype}{tuple(a.shape)} vs {b.dtype}{tuple(b.shape)}")
+        err = max(err, float((a.double() - b.double()).abs().max())
+                  if a.numel() else 0.0)
+    return err
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def separated(n: int, d: int, eps: float, seed: int) -> np.ndarray:
+    """Uniform points with no pair within 0.2% of eps^2 of the boundary,
+    so the tiled and tree distance forms cannot disagree on a pair."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(0, 1, size=(n, d)).astype(np.float32)
+    while True:
+        x = pts.astype(np.float64)
+        d2 = ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+        bad = np.abs(d2 - eps * eps) < 2e-3 * eps * eps
+        np.fill_diagonal(bad, False)
+        rows = np.unique(np.nonzero(bad)[0])
+        if len(rows) == 0:
+            return pts
+        pts[rows] = rng.uniform(0, 1, size=(len(rows), d)).astype(np.float32)
+
+
+def same_core_partition(a, b) -> bool:
+    core = a.core_mask.cpu().numpy()
+    return (np.array_equal(core, b.core_mask.cpu().numpy())
+            and validate.same_partition(a.labels.cpu().numpy()[core],
+                                        b.labels.cpu().numpy()[core]))
+
+
+def check_result(res, n: int, what: str) -> None:
+    labels = res.labels
+    check(labels.shape == (n,) and labels.dtype == torch.int32
+          and labels.device.type == "cuda", f"{what}: labels malformed")
+    check(res.core_mask.shape == (n,) and res.core_mask.dtype == torch.bool,
+          f"{what}: core mask malformed")
+    lo, hi = int(labels.min()), int(labels.max())
+    check(res.n_clusters > 0 and lo >= -1 and hi == res.n_clusters - 1,
+          f"{what}: labels outside [-1, n_clusters)")
+    check(bool((labels[res.core_mask] >= 0).all()),
+          f"{what}: a core point is labeled noise")
+
+
+# --------------------------------------------------------------------- #
+# phase 1: environment and build                                        #
+# --------------------------------------------------------------------- #
+
+def phase_environment() -> None:
+    cap = torch.cuda.get_device_capability(0)
+    say("env", torch=torch.__version__, cuda=torch.version.cuda,
+        device=repr(torch.cuda.get_device_name(0)),
+        capability=f"{cap[0]}.{cap[1]}", count=torch.cuda.device_count())
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    t0 = time.perf_counter()
+    info = _build.build()
+    say("build", seconds=f"{time.perf_counter() - t0:.1f}",
+        **{name: f"{v['seconds']:.1f}s" for name, v in info.items()})
+    for name, v in info.items():
+        regs = [int(w) for line in v["log"].splitlines()
+                if "registers" in line
+                for w, nxt in zip(line.split(), line.split()[1:])
+                if nxt == "registers,"]
+        spills = sum(" 0 bytes spill stores" not in line
+                     for line in v["log"].splitlines() if "spill" in line)
+        say(f"ptxas:{name}", kernels=len(regs), max_registers=max(regs),
+            with_spills=spills)
+
+
+# --------------------------------------------------------------------- #
+# phase 2: each kernel against its plain version, exact equality        #
+# --------------------------------------------------------------------- #
+
+def _walk_cases(segs, tree, eps, mp):
+    """(name, predicate, visitor, kwargs) of the three visitor kinds, in
+    the shapes the clustering phases give the walk."""
+    n = segs.n_points
+    g = torch.Generator(device="cpu").manual_seed(0)
+    idx = torch.arange(n, dtype=torch.int32, device=DEV)
+    vals0 = fdbscan._unify_dense(idx, segs)
+    every = traversal.intersects(traversal.sphere(eps))
+    # the fused first pass, as fdbscan._fused_first_pass runs it
+    first = ("countminlabel", every,
+             traversal.CountMinLabelVisitor(
+                 vals0, torch.ones(n, dtype=torch.bool, device=DEV),
+                 cap=mp - 1), {})
+    # a split first sweep: compacted ids with inert -1 lanes at the end, a
+    # node mask, and wide lanes that swap in the wide node and gather masks
+    active = (torch.rand(n, generator=g) < 0.4).to(DEV)
+    ids = torch.cat([fdbscan._compact_ids(active),
+                     torch.full((1000,), -1, dtype=torch.int32, device=DEV)])
+    wide_pt = (torch.rand(n, generator=g) < 0.1).to(DEV)
+    lane_wide = torch.where(ids >= 0, wide_pt[torch.clamp_min(ids, 0)],
+                            False)
+    narrow = (torch.rand(n, generator=g) < 0.2).to(DEV)
+    leaf = (torch.rand(segs.n_segments, generator=g) < 0.3).to(DEV)
+    sweep = ("minlabel", traversal.intersects(traversal.sphere(eps), ids=ids),
+             traversal.MinLabelVisitor(vals0, narrow,
+                                       mask_wide=torch.ones_like(narrow)),
+             dict(node_mask=lbvh.propagate_leaf_flags(tree, leaf),
+                  node_mask_wide=torch.ones(2 * segs.n_segments - 1,
+                                            dtype=torch.bool, device=DEV),
+                  wide_lanes=lane_wide))
+    # the early-exit count pass over the loose points
+    loose = fdbscan._compact_ids(~segs.dense_pt)
+    count = ("count", traversal.intersects(traversal.sphere(eps), ids=loose),
+             traversal.CountVisitor(cap=mp), {})
+    return [first, sweep, count]
+
+
+def _same_walk(name, k, p) -> float:
+    """Exact equality of a kernel walk and a plain walk; the error."""
+    e = max_abs_err([(k.acc, p.acc), (k.hits, p.hits),
+                     (k.evals, p.evals), (k.iters, p.iters)])
+    check(e == 0.0, f"walk {name}: kernel differs from plain "
+                    f"(max abs err {e})")
+    return e
+
+
+def phase_walk_check() -> float:
+    """Every visitor kind, with synthetic masks and -1 lanes, on a
+    densebox index of each scenario; the main path's own walks are held
+    against the plain engine in :func:`phase_main_walk_check`."""
+    err = 0.0
+    for dset, n, eps, mp in WALK_CHECK:
+        pts = torch.from_numpy(pointclouds.load(dset, n)).to(DEV)
+        segs = grid.build_segments_densebox(pts, eps, mp)
+        tree = lbvh.build_tree(segs.codes, segs.prim_lo, segs.prim_hi)
+        for name, pred, cb, kw in _walk_cases(segs, tree, eps, mp):
+            k = kt.traverse(tree, segs, pred, cb, unroll=kt.PALLAS_UNROLL,
+                            **kw)
+            p = traversal.traverse(tree, segs, pred, cb,
+                                   unroll=kt.PALLAS_UNROLL, **kw)
+            torch.cuda.synchronize()
+            e = _same_walk(f"{dset} {name}", k, p)
+            err = max(err, e)
+            say("walk-check", dataset=dset, n=n, d=pts.shape[1], kind=name,
+                lanes=int(k.iters.shape[0]), evals=int(k.evals.sum()),
+                iters=int(k.iters.sum()), max_abs_err=e)
+    return err
+
+
+def _walk_timing(args, kw, plain_ms: float) -> dict:
+    """Kernel time, bound and counters of the fused first pass (every
+    point a lane) on the main path's own index and visitor."""
+    tree, segs, pred, cb = args
+    ms = cuda_ms(lambda: kt.traverse(*args, **kw), 5)
+    n, d = segs.pts.shape
+    in_bytes = nbytes(segs.pts, segs.pts, segs.seg_start, segs.seg_end,
+                      segs.dense_seg, tree.left, tree.miss, tree.box_lo,
+                      tree.box_hi, cb.vals, cb.mask)
+    # lane arrays (qid, self_id, rank, dense, wide, acc0, hits0) and the
+    # four outputs
+    lane_bytes = n * (4 * 3 + 1 * 2 + 4 * 2) + n * 4 * 4
+    k = kt.traverse(*args, **kw)
+    # at unroll 1 every loop trip is one work unit, so trips minus member
+    # tests counts the node visits this data needs
+    k1 = kt.traverse(*args, unroll=1, **kw)
+    check(bool(torch.equal(k1.evals, k.evals)), "walk: evals depend on unroll")
+    evals = float(k.evals.sum())
+    visits = float(k1.iters.sum()) - evals
+    # member test: d subs, squares as 1 mul + (d-1) fmas, 1 compare (3d);
+    # node test: 2d subs, 2d maxes, 2d - 1 for the squares, 1 compare (6d)
+    ops = evals * 3 * d + visits * 6 * d
+    b_ms, b_by = bound(in_bytes + lane_bytes, ops)
+    say("walk-time", n=n, d=d, kind="countminlabel", ms=f"{ms:.4f}",
+        plain_ms=f"{plain_ms:.2f}", bound_ms=f"{b_ms:.5f}", bound_by=b_by,
+        member_tests=int(evals), node_visits=int(visits),
+        bytes=in_bytes + lane_bytes)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def phase_main_walk_check(runs) -> tuple[float, dict]:
+    """Replay each full-size scenario's clustering run with some of its
+    walks also run by the plain engine on the same inputs, exact equality:
+    the fused first pass, the first two sweeps (the split first sweep and a
+    frontier sweep over compacted lanes) and the border gather. The first
+    scenario's first pass is also timed. Runs after the counted main path,
+    so neither engine's runs here enter the launch counts."""
+    err, timing = 0.0, None
+    for dset, n, eps, mp, pts, plan, _, _ in runs:
+        if plan is None:
+            continue
+        before = kt.walk.launches
+        repro_torch.dbscan(pts, eps, mp, query_plan=plan)
+        n_walks = kt.walk.launches - before
+        picks = {0, 1, 2, n_walks - 1}
+        calls = []
+
+        def checked(*args, **kw):
+            nonlocal err, timing
+            i = len(calls)
+            calls.append(i)
+            k = kt.traverse(*args, **kw)
+            if i not in picks:
+                return k
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            p = traversal.traverse(*args, unroll=kt.PALLAS_UNROLL, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            name = type(args[3]).__name__
+            e = _same_walk(f"{dset} call {i} ({name})", k, p)
+            err = max(err, e)
+            plain_ms = start.elapsed_time(end)
+            say("walk-check", dataset=dset, n=n, call=f"{i}/{n_walks}",
+                kind=name, lanes=int(k.iters.shape[0]),
+                node_mask=kw.get("node_mask") is not None,
+                wide_lanes=int(kw["wide_lanes"].sum())
+                if kw.get("wide_lanes") is not None else 0,
+                evals=int(k.evals.sum()), iters=int(k.iters.sum()),
+                plain_s=f"{plain_ms / 1e3:.1f}", max_abs_err=e)
+            if timing is None and i == 0:
+                timing = _walk_timing(args, kw, plain_ms)
+            return k
+
+        fdbscan._walk, walk_fn = checked, fdbscan._walk
+        try:
+            res = repro_torch.dbscan(pts, eps, mp, query_plan=plan)
+        finally:
+            fdbscan._walk = walk_fn
+        check(len(calls) == n_walks, f"{dset}: {len(calls)} walks in the "
+                                     f"checked run, {n_walks} before")
+        check(res.n_traversals == n_walks, f"{dset}: {n_walks} walks for "
+                                           f"{res.n_traversals} traversals")
+    return err, timing
+
+
+def phase_tile_check() -> dict:
+    out = {}
+    g = torch.Generator(device="cpu").manual_seed(1)
+    eps = 0.05
+    errs = {"pairwise_count": 0.0, "pairwise_minlabel": 0.0}
+    for nq, nr in TILE_SHAPES:
+        for d in (2, 3):
+            x = torch.rand(nq + nr, d, generator=g).to(DEV)
+            q, r = x[:nq], x[nq:]
+            lab = torch.randint(0, 1 << 20, (nr,), generator=g,
+                                dtype=torch.int32).to(DEV)
+            mask = (torch.rand(nr, generator=g) < 0.6).to(DEV)
+            for cap in (5, ref.INT_MAX):
+                e = max_abs_err([(pairwise.pairwise_count(q, r, eps, cap),
+                                  ref.pairwise_count_ref(q, r, eps, cap))])
+                check(e == 0.0, f"pairwise_count {nq}x{nr} d={d}: kernel "
+                                f"differs from plain ({e})")
+                errs["pairwise_count"] = max(errs["pairwise_count"], e)
+            kl, kc = pairwise.pairwise_minlabel(q, r, lab, mask, eps)
+            pl_, pc = ref.pairwise_minlabel_ref(q, r, lab, mask, eps)
+            e2 = max_abs_err([(kl, pl_), (kc, pc)])
+            check(e2 == 0.0, f"pairwise_minlabel {nq}x{nr} d={d}: kernel "
+                             f"differs from plain ({e2})")
+            errs["pairwise_minlabel"] = max(errs["pairwise_minlabel"], e2)
+            say("tile-check", nq=nq, nr=nr, d=d, max_abs_err=max(e, e2))
+    # no queries: the wrappers return empty results without a launch
+    before = (pairwise.pairwise_count.launches,
+              pairwise.pairwise_minlabel.launches)
+    none = torch.empty(0, 2, device=DEV)
+    r = torch.rand(5, 2, generator=g).to(DEV)
+    lab = torch.arange(5, dtype=torch.int32, device=DEV)
+    got = (pairwise.pairwise_count(none, r, eps),
+           *pairwise.pairwise_minlabel(none, r, lab, lab > 1, eps))
+    check(all(t.shape == (0,) and t.dtype == torch.int32 for t in got)
+          and before == (pairwise.pairwise_count.launches,
+                         pairwise.pairwise_minlabel.launches),
+          "a tile wrapper launched or misshaped an empty query set")
+    # times at the tiled path's shape: n = 1000 points against themselves
+    nq = nr = TILED_N
+    d = 2
+    pts = torch.rand(nq, d, generator=g).to(DEV)
+    lab = torch.arange(nq, dtype=torch.int32, device=DEV)
+    mask = torch.ones(nq, dtype=torch.bool, device=DEV)
+    flops = nq * nr * (2 * d + 3) + (nq + nr) * (2 * d - 1)
+    cnt_ms = cuda_ms(lambda: pairwise.pairwise_count(pts, pts, eps, 5), 50)
+    cnt_plain = cuda_ms(lambda: ref.pairwise_count_ref(pts, pts, eps, 5), 5)
+    lib_ms = cuda_ms(lambda: (torch.cdist(pts, pts) <= eps).sum(1), 50)
+    b_ms, b_by = bound(nbytes(pts, pts) + 4 * nq, flops)
+    out["pairwise_count"] = dict(max_abs_err=errs["pairwise_count"],
+                                 ms=cnt_ms, plain_ms=cnt_plain, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=lib_ms)
+    ml_ms = cuda_ms(lambda: pairwise.pairwise_minlabel(pts, pts, lab, mask,
+                                                       eps), 50)
+    ml_plain = cuda_ms(lambda: ref.pairwise_minlabel_ref(pts, pts, lab, mask,
+                                                         eps), 5)
+    b_ms2, b_by2 = bound(nbytes(pts, pts, lab, mask) + 8 * nq,
+                         flops + nq * nr)
+    out["pairwise_minlabel"] = dict(max_abs_err=errs["pairwise_minlabel"],
+                                    ms=ml_ms, plain_ms=ml_plain,
+                                    bound_ms=b_ms2, bound_by=b_by2,
+                                    library_ms=None)
+    for name, v in out.items():
+        say("tile-time", kernel=name, n=nq, ms=f"{v['ms']:.4f}",
+            plain_ms=f"{v['plain_ms']:.3f}", bound_ms=f"{v['bound_ms']:.5f}",
+            library_ms=v["library_ms"])
+    return out
+
+
+# --------------------------------------------------------------------- #
+# phases 3 and 4: the main path                                         #
+# --------------------------------------------------------------------- #
+
+def run_main_path():
+    """Drive repro_torch.dbscan(algorithm="auto") on the two full-size
+    scenarios and on the tiled path. Returns the results and the plans."""
+    out = []
+    for dset, n, eps, mp in MAIN:
+        pts = pointclouds.load(dset, n)
+        before = kt.walk.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = repro_torch.plan(pts, eps, mp, device=DEV)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        res = repro_torch.dbscan(pts, eps, mp, query_plan=plan)   # cold
+        warm = torch.cuda.Event(enable_timing=True)
+        done = torch.cuda.Event(enable_timing=True)
+        warm.record()
+        res = repro_torch.dbscan(pts, eps, mp, query_plan=plan)
+        done.record()
+        torch.cuda.synchronize()
+        cluster_ms = warm.elapsed_time(done)
+        say("main", dataset=dset, n=n, eps=eps, min_pts=mp,
+            backend=res.backend, index=plan.stats.get("reason"),
+            index_build_s=f"{build_s:.3f}", cluster_ms=f"{cluster_ms:.1f}",
+            n_clusters=res.n_clusters, n_sweeps=res.n_sweeps,
+            walk_launches=kt.walk.launches - before)
+        out.append((dset, n, eps, mp, pts, plan, res, cluster_ms))
+    pts = separated(TILED_N, 2, 0.05, seed=3)
+    before = (pairwise.pairwise_count.launches,
+              pairwise.pairwise_minlabel.launches)
+    res = repro_torch.dbscan(pts, 0.05, 5)
+    torch.cuda.synchronize()
+    say("tiled", n=TILED_N, backend=res.backend, n_clusters=res.n_clusters,
+        count_launches=pairwise.pairwise_count.launches - before[0],
+        minlabel_launches=pairwise.pairwise_minlabel.launches - before[1])
+    out.append(("separated", TILED_N, 0.05, 5, pts, None, res, None))
+    return out
+
+
+def check_main_path(runs, seen: dict) -> None:
+    check(seen["walk"] > 0, "the walk kernel never ran on the main path")
+    check(seen["plain_walk_runs"] == 0,
+          f"the plain walk ran {seen['plain_walk_runs']} times on the card")
+    check(seen["pairwise_count"] > 0 and seen["pairwise_minlabel"] > 0,
+          "a tile kernel never ran on the tiled path")
+    for dset, n, eps, mp, pts, plan, res, _ in runs:
+        check_result(res, n, dset)
+        if plan is None:
+            check(res.backend == "tiled", f"auto picked {res.backend} at "
+                                          f"n={n}, expected tiled")
+            other = repro_torch.dbscan(pts, eps, mp, algorithm="pallas-tree")
+            check(same_core_partition(res, other),
+                  "tiled result differs from the walk kernel's")
+            validate.check_dbscan(pts, eps, mp, res.labels.cpu().numpy(),
+                                  res.core_mask.cpu().numpy())
+            say("check", path="tiled", vs="pallas-tree + numpy oracle",
+                ok=True)
+            continue
+        check(res.backend == "pallas-tree",
+              f"{dset}: auto resolved to {res.backend} on the card")
+        other = repro_torch.dbscan(pts, eps, mp, algorithm="fdbscan")
+        torch.cuda.synchronize()
+        check(same_core_partition(res, other),
+              f"{dset}: auto result differs from the fdbscan index's")
+        say("check", path=dset, vs="fdbscan index", ok=True,
+            core=int(res.core_mask.sum()), n_clusters=res.n_clusters)
+    # a small input held against the blocked numpy oracle
+    small = pointclouds.load("hacc_like", 4096, seed=5)
+    res = repro_torch.dbscan(small, 0.03, 5)
+    check(res.backend == "pallas-tree", "small auto run left the kernel")
+    validate.check_dbscan(small, 0.03, 5, res.labels.cpu().numpy(),
+                          res.core_mask.cpu().numpy())
+    say("check", path="hacc_like n=4096", vs="numpy oracle", ok=True)
+
+
+def phase_degenerate() -> None:
+    """The degenerate parameter matrix on the card, every backend: results
+    must be the expected all-noise, one-cluster or two-group labelings and
+    pass the numpy oracle."""
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(0, 1, (60, 2)).astype(np.float32)
+    dup = np.tile(pts[:1], (20, 1))
+    cases = [("minpts_gt_n", pts, 0.1, 100, 0),
+             ("eps_gt_bbox", pts, 50.0, 5, 1),
+             ("n1_minpts1", pts[:1], 0.1, 1, 1),
+             ("n1_minpts2", pts[:1], 0.1, 2, 0), ("all_dup", dup, 0.1, 5, 1),
+             ("all_dup_minpts_gt_n", dup, 0.1, 21, 0)]
+    for name, x, eps, mp, want in cases:
+        for algorithm in ("auto", "fdbscan", "fdbscan-densebox", "tiled",
+                          "pallas-tree"):
+            res = repro_torch.dbscan(x, eps, mp, algorithm=algorithm)
+            labels = res.labels.cpu().numpy()
+            core = res.core_mask.cpu().numpy()
+            check(res.n_clusters == want
+                  and (labels == (-1 if want == 0 else 0)).all()
+                  and (core == (want == 1)).all(),
+                  f"degenerate {name} with {algorithm}: {res}")
+            validate.check_dbscan(x, eps, mp, labels, core)
+    # two tight groups, every point core: the border gather (and with the
+    # densebox index the first sweep) has no lanes, so the walk wrapper
+    # returns without a launch and counts none
+    two = np.concatenate([rng.uniform(0, 0.01, (20, 2)),
+                          rng.uniform(0.5, 0.51, (20, 2))]).astype(np.float32)
+    lanes = []
+
+    def recorded(*args, **kw):
+        tr = walk_fn(*args, **kw)
+        lanes.append(int(tr.iters.shape[0]))
+        return tr
+
+    fdbscan._walk, walk_fn = recorded, fdbscan._walk
+    try:
+        for algorithm in ("fdbscan", "fdbscan-densebox", "pallas-tree"):
+            lanes.clear()
+            before = kt.walk.launches
+            res = repro_torch.dbscan(two, 0.1, 5, algorithm=algorithm)
+            launched = kt.walk.launches - before
+            check(res.n_clusters == 2 and bool(res.core_mask.all())
+                  and 0 in lanes
+                  and launched == sum(k > 0 for k in lanes),
+                  f"all-core run with {algorithm}: {res}, lanes per walk "
+                  f"{lanes}, {launched} launches")
+            validate.check_dbscan(two, 0.1, 5, res.labels.cpu().numpy(),
+                                  res.core_mask.cpu().numpy())
+    finally:
+        fdbscan._walk = walk_fn
+    say("degenerate", cases=len(cases) + 1, backends=5, ok=True)
+
+
+def phase_profile(runs) -> None:
+    """Where the time of one warm clustering run goes on the card: device
+    time by kernel (torch.profiler, CUDA activity) of one more warm run.
+    The profiler slows the host side of the run, so the idle share is
+    taken against the unprofiled warm run's time (``cluster_ms``)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]):   # tracer start-up
+        torch.ones(1, device=DEV).add_(1)
+        torch.cuda.synchronize()
+    for dset, n, eps, mp, pts, plan, _, cluster_ms in runs:
+        if plan is None:
+            continue
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            repro_torch.dbscan(pts, eps, mp, query_plan=plan)
+            torch.cuda.synchronize()
+        kern = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                kern.setdefault(e.name, [0.0, 0])
+                kern[e.name][0] += e.time_range.elapsed_us() / 1e3
+                kern[e.name][1] += 1
+        busy = sum(v[0] for v in kern.values())
+        walk_ms = sum(v[0] for k, v in kern.items() if "walk_kernel" in k)
+        say("profile", dataset=dset, cluster_ms=f"{cluster_ms:.1f}",
+            device_busy_ms=f"{busy:.1f}",
+            idle_share=f"{1 - busy / cluster_ms:.3f}",
+            walk_kernel_ms=f"{walk_ms:.1f}",
+            walk_share_of_busy=f"{walk_ms / busy:.3f}",
+            device_ops=sum(v[1] for v in kern.values()))
+        top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]
+        for name, (ms, calls) in top:
+            say("profile-kernel", dataset=dset, ms=f"{ms:.2f}", calls=calls,
+                share=f"{ms / busy:.3f}", name=repr(name[:60]))
+
+
+def main() -> None:
+    profile_run = "--profile" in sys.argv[1:]
+    phase_environment()
+    walk_err = phase_walk_check()
+    tile_t = phase_tile_check()
+
+    reset_counts()
+    runs = run_main_path()
+    seen = counts()
+    say("counts", **seen)
+    check_main_path(runs, seen)
+    main_err, walk_t = phase_main_walk_check(runs)
+    walk_t["max_abs_err"] = max(walk_err, main_err)
+    phase_degenerate()
+    if profile_run:
+        phase_profile(runs)
+
+    csrc = "src/repro_torch/csrc"
+    kernels = [
+        dict(name="walk", route="cuda", source=f"{csrc}/walk.cu",
+             replaces="src/repro/kernels/traverse.py:98",
+             launches=seen["walk"], **walk_t),
+        dict(name="pairwise_count", route="cuda",
+             source=f"{csrc}/pairwise.cu",
+             replaces="src/repro/kernels/pairwise.py:67",
+             launches=seen["pairwise_count"], **tile_t["pairwise_count"]),
+        dict(name="pairwise_minlabel", route="cuda",
+             source=f"{csrc}/pairwise.cu",
+             replaces="src/repro/kernels/pairwise.py:81",
+             launches=seen["pairwise_minlabel"],
+             **tile_t["pairwise_minlabel"]),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,41 @@
+"""Bulk-synchronous union-find (the ECL-CC union-find without atomics).
+
+The paper uses Jaiganesh & Burtscher's synchronization-free GPU union-find
+with *intermediate pointer jumping*. The same disjoint-set semantics come
+from deterministic bulk primitives:
+
+  * HOOK:  labels <- min(labels, candidate)  (elementwise),
+  * JUMP:  labels <- labels[labels]          (one gather doubles every path
+           compression step — the bulk analogue of pointer jumping),
+
+iterated to a fixpoint. ``labels[i]`` always holds the index of some point
+known to be in i's cluster, is monotonically non-increasing, and converges
+to the minimum member index of the connected component (the canonical
+representative). The paper's finalization (make every label point at the
+root) is ``jump_to_fixpoint``.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def jump_once(labels: torch.Tensor) -> torch.Tensor:
+    return labels[labels]
+
+
+def jump_to_fixpoint(labels: torch.Tensor) -> torch.Tensor:
+    """Full path compression: every label points at its root."""
+    while True:
+        jumped = labels[labels]
+        if bool((jumped == labels).all()):
+            return labels
+        labels = jumped
+
+
+def hook(labels: torch.Tensor, candidate: torch.Tensor,
+         mask=None) -> torch.Tensor:
+    """labels <- min(labels, candidate) where mask (monotone hook)."""
+    new = torch.minimum(labels, candidate)
+    if mask is not None:
+        new = torch.where(mask, new, labels)
+    return new
