@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -41,7 +42,7 @@ from repro_torch.core import fdbscan, grid, lbvh, traversal  # noqa: E402
 from repro_torch.core import validate  # noqa: E402
 from repro_torch.data import pointclouds  # noqa: E402
 from repro_torch.kernels import pairwise, ref  # noqa: E402
-from repro_torch.kernels import traverse as kt  # noqa: E402
+from repro_torch.kernels import traverse as kt, walkpack  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate and float32 rate
@@ -59,7 +60,12 @@ MAIN = [("hacc_like", 2_097_152, 0.00595, 5),
 # like the main path's
 WALK_CHECK = [("hacc_like", 262_144, 0.0119, 5),
               ("portotaxi_like", 262_144, 0.0025, 50)]
-TILE_SHAPES = [(1000, 1000), (130, 257), (7, 5)]
+# every specialization of the walk on smaller indexes of both scenarios
+WALK_SPEC = [("hacc_like", 16_384, 0.03, 5),
+             ("portotaxi_like", 16_384, 0.01, 50)]
+# member tests the walk kernel loads together (csrc/walk.cu: kBatch)
+WALK_BATCH = 4
+TILE_SHAPES = [(1000, 1000), (130, 257), (7, 5), (64, 20000)]
 TILED_N = 1000
 
 
@@ -88,8 +94,26 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, name: str | None = None) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` runs after one
+    warm-up: the summed time of the CUDA kernels the profiler records
+    (those whose name holds ``name``, or all), over ``reps``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and (name is None or name in e.name))
+    return us / 1e3 / reps
+
+
 def reset_counts() -> None:
     kt.walk.launches = 0
+    walkpack.pack_index.builds = 0
     pairwise.pairwise_count.launches = 0
     pairwise.pairwise_minlabel.launches = 0
     traversal.traverse.runs = 0
@@ -99,7 +123,8 @@ def counts() -> dict:
     return {"walk": kt.walk.launches,
             "pairwise_count": pairwise.pairwise_count.launches,
             "pairwise_minlabel": pairwise.pairwise_minlabel.launches,
-            "plain_walk_runs": traversal.traverse.runs}
+            "plain_walk_runs": traversal.traverse.runs,
+            "walk_index_builds": walkpack.pack_index.builds}
 
 
 def max_abs_err(pairs) -> float:
@@ -178,14 +203,32 @@ def phase_environment() -> None:
     say("build", seconds=f"{time.perf_counter() - t0:.1f}",
         **{name: f"{v['seconds']:.1f}s" for name, v in info.items()})
     for name, v in info.items():
-        regs = [int(w) for line in v["log"].splitlines()
-                if "registers" in line
-                for w, nxt in zip(line.split(), line.split()[1:])
-                if nxt == "registers,"]
+        regs = ptxas_registers(v["log"])
         spills = sum(" 0 bytes spill stores" not in line
                      for line in v["log"].splitlines() if "spill" in line)
-        say(f"ptxas:{name}", kernels=len(regs), max_registers=max(regs),
-            with_spills=spills)
+        say(f"ptxas:{name}", kernels=len(regs),
+            max_registers=max(regs.values()), with_spills=spills)
+        say(f"ptxas-registers:{name}", **regs)
+
+
+def ptxas_registers(log: str) -> dict:
+    """Registers per compiled kernel from ``-Xptxas -v`` output, keyed by
+    the kernel's template arguments as they appear in its mangled name."""
+    out, entry = {}, "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            walk = re.search(r"walk_kernelILi(\d)E([if])Li(\d)E", entry)
+            plain = re.search(r"\d([a-z][a-z_]*_kernel)", entry)
+            if walk:        # walk_kernel<KIND, V, D>
+                entry = (f"kind{walk[1]}_{'f32' if walk[2] == 'f' else 'i32'}"
+                         f"_d{walk[3]}")
+            elif plain:
+                entry = plain[1]
+        for w, nxt in zip(line.split(), line.split()[1:]):
+            if nxt == "registers,":
+                out[entry] = int(w)
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -238,45 +281,177 @@ def _same_walk(name, k, p) -> float:
     return e
 
 
+def _index(dset: str, n: int, eps: float, mp: int):
+    pts = torch.from_numpy(pointclouds.load(dset, n)).to(DEV)
+    segs = grid.build_segments_densebox(pts, eps, mp)
+    tree = lbvh.build_tree(segs.codes, segs.prim_lo, segs.prim_hi)
+    return segs, tree, walkpack.pack_index(tree, segs)
+
+
+def _check_walk(name, segs, tree, index, pred, cb, kw, unroll=None,
+                carry=None):
+    """One kernel walk against the plain engine at the same unroll, exact.
+    Returns (max abs err, kernel trace)."""
+    unroll = kt.PALLAS_UNROLL if unroll is None else unroll
+    before = kt.walk.launches
+    k = kt.traverse(tree, segs, pred, cb, carry=carry, unroll=unroll,
+                    walk_index=index, **kw)
+    check(kt.walk.launches - before == int(k.iters.shape[0] > 0),
+          f"walk {name}: launches do not match its lanes")
+    p = traversal.traverse(tree, segs, pred, cb, carry=carry, unroll=unroll,
+                           **kw)
+    torch.cuda.synchronize()
+    return _same_walk(name, k, p), k
+
+
+def _spec_matrix(segs, tree):
+    """(name, callback, kwargs) of every visitor kind and value type with
+    and without the range mask, under each node/gather mask option."""
+    n, m = segs.n_points, segs.n_segments
+    g = torch.Generator(device="cpu").manual_seed(2)
+    vals = {"i32": fdbscan._unify_dense(
+        torch.arange(n, dtype=torch.int32, device=DEV), segs),
+        "f32": torch.rand(n, generator=g).to(DEV)}
+    gather = (torch.rand(n, generator=g) < 0.6).to(DEV)
+    wide = (torch.rand(n, generator=g) < 0.3).to(DEV)
+    node_mask = lbvh.propagate_leaf_flags(
+        tree, (torch.rand(m, generator=g) < 0.5).to(DEV))
+    all_nodes = torch.ones(2 * m - 1, dtype=torch.bool, device=DEV)
+    nodes = {"none": {}, "node_mask": dict(node_mask=node_mask),
+             "node_mask_wide": dict(node_mask=node_mask,
+                                    node_mask_wide=all_nodes,
+                                    wide_lanes=wide)}
+    out = []
+    for rng in (False, True):
+        r = dict(use_range_mask=True) if rng else {}
+        for cap in (5, traversal.INT_MAX):
+            for opt, kw in nodes.items():
+                out.append((f"count cap={cap} range={rng} {opt}",
+                            traversal.CountVisitor(cap=cap), {**kw, **r}))
+        for vt, v in vals.items():
+            for opt, kw in nodes.items():
+                out.append((f"countminlabel {vt} range={rng} {opt}",
+                            traversal.CountMinLabelVisitor(v, gather, cap=4),
+                            {**kw, **r}))
+            for opt, kw in [*nodes.items(),
+                            ("mask_wide", dict(wide_lanes=wide)),
+                            ("node_mask_wide+mask_wide",
+                             nodes["node_mask_wide"])]:
+                mw = torch.ones_like(gather) if "mask_wide" in opt else None
+                out.append((f"minlabel {vt} range={rng} {opt}",
+                            traversal.MinLabelVisitor(v, gather,
+                                                      mask_wide=mw),
+                            {**kw, **r}))
+    return out
+
+
 def phase_walk_check() -> float:
-    """Every visitor kind, with synthetic masks and -1 lanes, on a
-    densebox index of each scenario; the main path's own walks are held
-    against the plain engine in :func:`phase_main_walk_check`."""
+    """The walk kernel against the plain engine, exact, on densebox
+    indexes of both scenarios (d = 3 and d = 2):
+
+    * the three kinds in the clustering phases' shapes at 262,144 points,
+      more lanes than the card holds threads, so lanes are refilled;
+    * every specialization at 16,384 points: each kind and value type,
+      with and without the range mask, with no node mask, a node mask, a
+      per-lane wide node mask, and (minlabel) a per-lane wide gather mask;
+      count with cap 5 (reached inside a batch of members) and uncapped;
+    * lane counts of 1, 31, 33 and 4,099, all lanes inert, and external
+      queries with a carry seeded by a first walk;
+    * ``iters`` reported at unroll 1 and 7 besides the default 4.
+
+    The main path's own walks are held against the plain engine in
+    :func:`phase_main_walk_check`."""
     err = 0.0
+    t0 = time.perf_counter()
     for dset, n, eps, mp in WALK_CHECK:
-        pts = torch.from_numpy(pointclouds.load(dset, n)).to(DEV)
-        segs = grid.build_segments_densebox(pts, eps, mp)
-        tree = lbvh.build_tree(segs.codes, segs.prim_lo, segs.prim_hi)
+        segs, tree, index = _index(dset, n, eps, mp)
         for name, pred, cb, kw in _walk_cases(segs, tree, eps, mp):
-            k = kt.traverse(tree, segs, pred, cb, unroll=kt.PALLAS_UNROLL,
-                            **kw)
-            p = traversal.traverse(tree, segs, pred, cb,
-                                   unroll=kt.PALLAS_UNROLL, **kw)
-            torch.cuda.synchronize()
-            e = _same_walk(f"{dset} {name}", k, p)
+            e, k = _check_walk(f"{dset} {name}", segs, tree, index, pred, cb,
+                               kw)
             err = max(err, e)
-            say("walk-check", dataset=dset, n=n, d=pts.shape[1], kind=name,
-                lanes=int(k.iters.shape[0]), evals=int(k.evals.sum()),
-                iters=int(k.iters.sum()), max_abs_err=e)
+            say("walk-check", dataset=dset, n=n, d=segs.pts.shape[1],
+                kind=name, lanes=int(k.iters.shape[0]),
+                threads=kt.walk.last_grid * kt.BLOCK,
+                evals=int(k.evals.sum()), iters=int(k.iters.sum()),
+                max_abs_err=e)
+    for dset, n, eps, mp in WALK_SPEC:
+        segs, tree, index = _index(dset, n, eps, mp)
+        d = segs.pts.shape[1]
+        every = traversal.intersects(traversal.sphere(eps))
+        cases = _spec_matrix(segs, tree)
+        for name, cb, kw in cases:
+            e, _ = _check_walk(f"{dset} {name}", segs, tree, index, every,
+                               cb, kw)
+            err = max(err, e)
+        lens = segs.seg_end - segs.seg_start
+        say("walk-spec", dataset=dset, n=n, d=d, cases=len(cases),
+            segments=segs.n_segments, members_max=int(lens.max()),
+            segments_longer_than_batch=int((lens > WALK_BATCH).sum()),
+            max_abs_err=err)
+        g = torch.Generator(device="cpu").manual_seed(3)
+        vals = torch.arange(n, dtype=torch.int32, device=DEV)
+        mask = torch.ones(n, dtype=torch.bool, device=DEV)
+        for lanes in (1, 31, 33, 4099):
+            ids = torch.randperm(n, generator=g)[:lanes].sort().values.to(
+                DEV, torch.int32)
+            pred = traversal.intersects(traversal.sphere(eps), ids=ids)
+            for cb in (traversal.CountVisitor(cap=mp),
+                       traversal.CountMinLabelVisitor(vals, mask, cap=mp - 1)):
+                e, _ = _check_walk(f"{dset} {lanes} lanes", segs, tree,
+                                   index, pred, cb, {})
+                err = max(err, e)
+        inert = traversal.intersects(
+            traversal.sphere(eps),
+            ids=torch.full((100,), -1, dtype=torch.int32, device=DEV))
+        e, k = _check_walk(f"{dset} inert", segs, tree, index, inert,
+                           traversal.MinLabelVisitor(vals, mask), {})
+        check(int(k.iters.sum()) == 0, "inert lanes did work")
+        ext = traversal.intersects(
+            traversal.sphere(3 * eps),
+            pts=torch.rand(137, d, generator=g).to(DEV))
+        cb = traversal.MinLabelVisitor(vals, mask)
+        e1, k1 = _check_walk(f"{dset} external", segs, tree, index, ext, cb,
+                             {})
+        e2, _ = _check_walk(f"{dset} external, seeded carry", segs, tree,
+                            index, ext, cb, {}, carry=k1.carry)
+        err = max(err, e, e1, e2)
+        split = next(c for c in cases if c[0] ==
+                     "minlabel i32 range=False node_mask_wide+mask_wide")
+        for unroll in (1, 7):
+            first = traversal.CountMinLabelVisitor(vals, mask, cap=mp - 1)
+            for name, cb, kw in (("countminlabel", first, {}), split):
+                e, _ = _check_walk(f"{dset} {name} unroll={unroll}", segs,
+                                   tree, index, every, cb, kw, unroll=unroll)
+                err = max(err, e)
+        say("walk-lanes", dataset=dset, n=n, d=d,
+            lanes="1,31,33,4099,inert,external+carry", unrolls="1,4,7",
+            max_abs_err=err)
+    say("walk-check-time", seconds=f"{time.perf_counter() - t0:.1f}")
     return err
 
 
-def _walk_timing(args, kw, plain_ms: float) -> dict:
-    """Kernel time, bound and counters of the fused first pass (every
-    point a lane) on the main path's own index and visitor."""
+WALK_TIMED = {0: "first pass", 1: "first sweep"}
+
+
+def _walk_timing(dset, label, args, kw, plain_ms: float) -> dict:
+    """Kernel time, bound and counters of one of the main path's walks,
+    on its own index, lanes and visitor."""
     tree, segs, pred, cb = args
     ms = cuda_ms(lambda: kt.traverse(*args, **kw), 5)
     n, d = segs.pts.shape
-    in_bytes = nbytes(segs.pts, segs.pts, segs.seg_start, segs.seg_end,
-                      segs.dense_seg, tree.left, tree.miss, tree.box_lo,
-                      tree.box_hi, cb.vals, cb.mask)
-    # lane arrays (qid, self_id, rank, dense, wide, acc0, hits0) and the
-    # four outputs
-    lane_bytes = n * (4 * 3 + 1 * 2 + 4 * 2) + n * 4 * 4
     k = kt.traverse(*args, **kw)
+    L = int(k.iters.shape[0])
+    in_bytes = nbytes(segs.pts, segs.seg_start, segs.seg_end, segs.dense_seg,
+                      tree.left, tree.miss, tree.box_lo, tree.box_hi,
+                      getattr(cb, "vals", None), getattr(cb, "mask", None),
+                      getattr(cb, "mask_wide", None), kw.get("node_mask"),
+                      kw.get("node_mask_wide"))
+    # lane arrays (q, qid, self_id, rank, dense, wide, acc0, hits0) and the
+    # four outputs
+    lane_bytes = L * (4 * d + 4 * 3 + 1 * 2 + 4 * 2) + L * 4 * 4
     # at unroll 1 every loop trip is one work unit, so trips minus member
     # tests counts the node visits this data needs
-    k1 = kt.traverse(*args, unroll=1, **kw)
+    k1 = kt.traverse(*args, **{**kw, "unroll": 1})
     check(bool(torch.equal(k1.evals, k.evals)), "walk: evals depend on unroll")
     evals = float(k.evals.sum())
     visits = float(k1.iters.sum()) - evals
@@ -284,10 +459,11 @@ def _walk_timing(args, kw, plain_ms: float) -> dict:
     # node test: 2d subs, 2d maxes, 2d - 1 for the squares, 1 compare (6d)
     ops = evals * 3 * d + visits * 6 * d
     b_ms, b_by = bound(in_bytes + lane_bytes, ops)
-    say("walk-time", n=n, d=d, kind="countminlabel", ms=f"{ms:.4f}",
-        plain_ms=f"{plain_ms:.2f}", bound_ms=f"{b_ms:.5f}", bound_by=b_by,
-        member_tests=int(evals), node_visits=int(visits),
-        bytes=in_bytes + lane_bytes)
+    say("walk-time", dataset=dset, walk=repr(label), n=n, d=d, lanes=L,
+        kind=type(cb).__name__, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.2f}",
+        bound_ms=f"{b_ms:.5f}", bound_by=b_by, member_tests=int(evals),
+        node_visits=int(visits), bytes=in_bytes + lane_bytes,
+        grid=kt.walk.last_grid, block=kt.BLOCK)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
 
@@ -297,9 +473,11 @@ def phase_main_walk_check(runs) -> tuple[float, dict]:
     walks also run by the plain engine on the same inputs, exact equality:
     the fused first pass, the first two sweeps (the split first sweep and a
     frontier sweep over compacted lanes) and the border gather. The first
-    scenario's first pass is also timed. Runs after the counted main path,
-    so neither engine's runs here enter the launch counts."""
-    err, timing = 0.0, None
+    pass and first sweep of each scenario are also timed; the first
+    scenario's first pass is the walk kernel's time in the kernel table.
+    Runs after the counted main path, so neither engine's runs here enter
+    the launch counts."""
+    err, timing = 0.0, {}
     for dset, n, eps, mp, pts, plan, _, _ in runs:
         if plan is None:
             continue
@@ -310,16 +488,17 @@ def phase_main_walk_check(runs) -> tuple[float, dict]:
         calls = []
 
         def checked(*args, **kw):
-            nonlocal err, timing
+            nonlocal err
             i = len(calls)
             calls.append(i)
             k = kt.traverse(*args, **kw)
             if i not in picks:
                 return k
+            plain_kw = {key: v for key, v in kw.items() if key != "walk_index"}
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            p = traversal.traverse(*args, unroll=kt.PALLAS_UNROLL, **kw)
+            p = traversal.traverse(*args, unroll=kt.PALLAS_UNROLL, **plain_kw)
             end.record()
             torch.cuda.synchronize()
             name = type(args[3]).__name__
@@ -333,8 +512,9 @@ def phase_main_walk_check(runs) -> tuple[float, dict]:
                 if kw.get("wide_lanes") is not None else 0,
                 evals=int(k.evals.sum()), iters=int(k.iters.sum()),
                 plain_s=f"{plain_ms / 1e3:.1f}", max_abs_err=e)
-            if timing is None and i == 0:
-                timing = _walk_timing(args, kw, plain_ms)
+            if i in WALK_TIMED:
+                timing[(dset, i)] = _walk_timing(dset, WALK_TIMED[i], args,
+                                                 kw, plain_ms)
             return k
 
         fdbscan._walk, walk_fn = checked, fdbscan._walk
@@ -346,7 +526,22 @@ def phase_main_walk_check(runs) -> tuple[float, dict]:
                                      f"checked run, {n_walks} before")
         check(res.n_traversals == n_walks, f"{dset}: {n_walks} walks for "
                                            f"{res.n_traversals} traversals")
-    return err, timing
+    return err, timing[(MAIN[0][0], 0)]
+
+
+def phase_walk_totals(runs) -> None:
+    """Device time of every walk-kernel launch of one more warm run of
+    each full-size scenario (torch.profiler), summed."""
+    for dset, n, eps, mp, pts, plan, _, _ in runs:
+        if plan is None:
+            continue
+        before = kt.walk.launches
+        ms = device_ms(lambda: repro_torch.dbscan(pts, eps, mp,
+                                                  query_plan=plan),
+                       1, name="walk_kernel")
+        say("walk-total", dataset=dset, n=n,
+            launches=(kt.walk.launches - before) // 2,
+            walk_device_ms=f"{ms:.4f}")
 
 
 def phase_tile_check() -> dict:
@@ -355,7 +550,7 @@ def phase_tile_check() -> dict:
     eps = 0.05
     errs = {"pairwise_count": 0.0, "pairwise_minlabel": 0.0}
     for nq, nr in TILE_SHAPES:
-        for d in (2, 3):
+        for d in (1, 2, 3, 5):
             x = torch.rand(nq + nr, d, generator=g).to(DEV)
             q, r = x[:nq], x[nq:]
             lab = torch.randint(0, 1 << 20, (nr,), generator=g,
@@ -400,6 +595,15 @@ def phase_tile_check() -> dict:
     out["pairwise_count"] = dict(max_abs_err=errs["pairwise_count"],
                                  ms=cnt_ms, plain_ms=cnt_plain, bound_ms=b_ms,
                                  bound_by=b_by, library_ms=lib_ms)
+    # device time alone: at this size a host call of the wrapper costs
+    # about as much as the kernel, and the event times above include it
+    dev = {"pairwise_count": device_ms(
+        lambda: pairwise.pairwise_count(pts, pts, eps, 5), 50,
+        "count_kernel"),
+        "pairwise_minlabel": device_ms(
+            lambda: pairwise.pairwise_minlabel(pts, pts, lab, mask, eps), 50,
+            "minlabel_kernel")}
+    lib_dev = device_ms(lambda: (torch.cdist(pts, pts) <= eps).sum(1), 50)
     ml_ms = cuda_ms(lambda: pairwise.pairwise_minlabel(pts, pts, lab, mask,
                                                        eps), 50)
     ml_plain = cuda_ms(lambda: ref.pairwise_minlabel_ref(pts, pts, lab, mask,
@@ -412,8 +616,10 @@ def phase_tile_check() -> dict:
                                     library_ms=None)
     for name, v in out.items():
         say("tile-time", kernel=name, n=nq, ms=f"{v['ms']:.4f}",
-            plain_ms=f"{v['plain_ms']:.3f}", bound_ms=f"{v['bound_ms']:.5f}",
-            library_ms=v["library_ms"])
+            device_ms=f"{dev[name]:.4f}", plain_ms=f"{v['plain_ms']:.3f}",
+            bound_ms=f"{v['bound_ms']:.5f}", library_ms=v["library_ms"],
+            library_device_ms=(f"{lib_dev:.4f}"
+                               if v["library_ms"] is not None else None))
     return out
 
 
@@ -444,6 +650,7 @@ def run_main_path():
         say("main", dataset=dset, n=n, eps=eps, min_pts=mp,
             backend=res.backend, index=plan.stats.get("reason"),
             index_build_s=f"{build_s:.3f}", cluster_ms=f"{cluster_ms:.1f}",
+            walk_index_mb=f"{nbytes(*plan.walk_index) / 2**20:.1f}",
             n_clusters=res.n_clusters, n_sweeps=res.n_sweeps,
             walk_launches=kt.walk.launches - before)
         out.append((dset, n, eps, mp, pts, plan, res, cluster_ms))
@@ -463,6 +670,10 @@ def check_main_path(runs, seen: dict) -> None:
     check(seen["walk"] > 0, "the walk kernel never ran on the main path")
     check(seen["plain_walk_runs"] == 0,
           f"the plain walk ran {seen['plain_walk_runs']} times on the card")
+    n_plans = sum(plan is not None for *_, plan, _, _ in runs)
+    check(seen["walk_index_builds"] == n_plans,
+          f"{seen['walk_index_builds']} packed layouts built for {n_plans} "
+          f"indexes: clustering with a plan must pack none")
     check(seen["pairwise_count"] > 0 and seen["pairwise_minlabel"] > 0,
           "a tile kernel never ran on the tiled path")
     for dset, n, eps, mp, pts, plan, res, _ in runs:
@@ -599,6 +810,7 @@ def main() -> None:
     check_main_path(runs, seen)
     main_err, walk_t = phase_main_walk_check(runs)
     walk_t["max_abs_err"] = max(walk_err, main_err)
+    phase_walk_totals(runs)
     phase_degenerate()
     if profile_run:
         phase_profile(runs)

@@ -110,12 +110,16 @@ class Plan(NamedTuple):
     stats: occupancy/size stats behind the choice; ``stats["reason"]``
         states why this backend won.
     device: where the index lives and the clustering runs.
+    walk_index: the index's packed layout for the walk kernel
+        (``repro_torch.kernels.walkpack.WalkIndex``), built with the index
+        on a CUDA device; None on the CPU and without a tree.
     """
     backend: str
     segs: grid.Segments | None
     tree: lbvh.Tree | None
     stats: dict
     device: torch.device
+    walk_index: Any = None
 
 
 def clear_cache() -> None:
@@ -154,6 +158,17 @@ def _tree_of(segs: grid.Segments):
     return lbvh.build_tree(segs.codes, segs.prim_lo, segs.prim_hi)
 
 
+def _walk_index_of(segs: grid.Segments, tree):
+    """The walk kernel's packed layout of the index, for a tree on a CUDA
+    device (the only place the kernel reads it) in d = 2 or 3 (the only
+    dimensions it takes; a walk raises for others); else None."""
+    if (tree is None or not _accel(segs.pts.device)
+            or segs.pts.shape[1] not in (2, 3)):
+        return None
+    from repro_torch.kernels.walkpack import pack_index
+    return pack_index(tree, segs)
+
+
 def _fdbscan_plan(points, pkey: str, stats: dict) -> Plan:
     """Plain-FDBSCAN plan; the index is eps-independent and shared across
     every (eps, min_pts) plan for the same point set."""
@@ -161,9 +176,11 @@ def _fdbscan_plan(points, pkey: str, stats: dict) -> Plan:
     cached = _cache_get(base_key)
     if cached is None:
         segs = grid.build_segments_fdbscan(points)
-        cached = _cache_put(base_key, (segs, _tree_of(segs)))
-    segs, tree = cached
-    return Plan("fdbscan", segs, tree, stats, points.device)
+        tree = _tree_of(segs)
+        cached = _cache_put(base_key,
+                            (segs, tree, _walk_index_of(segs, tree)))
+    segs, tree, walk_index = cached
+    return Plan("fdbscan", segs, tree, stats, points.device, walk_index)
 
 
 def plan(points, eps: float, min_pts: int, algorithm: str = "auto",
@@ -238,9 +255,10 @@ def plan(points, eps: float, min_pts: int, algorithm: str = "auto",
     if algorithm == "fdbscan-densebox" or dense_frac >= DENSE_FRACTION_MIN:
         stats["reason"] = ("explicit" if algorithm == "fdbscan-densebox"
                            else f"dense_fraction >= {DENSE_FRACTION_MIN}")
+        tree = _tree_of(segs)
         return _cache_put(key, _maybe_kernel(
-            Plan("fdbscan-densebox", segs, _tree_of(segs), stats,
-                 points.device), algorithm))
+            Plan("fdbscan-densebox", segs, tree, stats, points.device,
+                 _walk_index_of(segs, tree)), algorithm))
     stats["reason"] = f"dense_fraction < {DENSE_FRACTION_MIN}: plain tree"
     return _cache_put(key, _maybe_kernel(
         _fdbscan_plan(points, pkey, stats), algorithm))
@@ -299,4 +317,5 @@ def dbscan(points, eps: float, min_pts: int, *, algorithm: str = "auto",
                                 star=star)
     return fdbscan.cluster_from_index(p.segs, p.tree, eps, min_pts,
                                       star=star, frontier=frontier,
-                                      backend=p.backend)
+                                      backend=p.backend,
+                                      walk_index=p.walk_index)

@@ -79,7 +79,7 @@ def _unify_dense(labels, segs: grid.Segments):
     return torch.where(segs.dense_pt, torch.minimum(labels, dense_lab), labels)
 
 
-def _fused_first_pass(tree, segs, eps, min_pts: int):
+def _fused_first_pass(tree, segs, eps, min_pts: int, *, walk_index=None):
     """(core, labels0, vals0, absorbed, trace) from a single traversal."""
     n = segs.n_points
     dev = segs.pts.device
@@ -95,7 +95,7 @@ def _fused_first_pass(tree, segs, eps, min_pts: int):
                traversal.intersects(traversal.sphere(eps)),
                traversal.CountMinLabelVisitor(
                    vals0, torch.ones(n, dtype=torch.bool, device=dev),
-                   cap=min_pts - 1))
+                   cap=min_pts - 1), walk_index=walk_index)
     core = segs.dense_pt | (tr.hits >= min_pts - 1)
     # Validate the candidate: vals0 maps loose points to themselves and
     # dense points to a dense (hence core) member, so core[cand] holds iff
@@ -130,12 +130,12 @@ def _scatter_back(n: int, ids, acc):
 
 
 def _gather_minlabel(tree, segs, eps, labels, gather_mask, ids,
-                     node_mask=None):
+                     node_mask=None, walk_index=None):
     """One (possibly compacted/pruned) min-label sweep, full-width output."""
     tr = _walk(tree, segs,
                traversal.intersects(traversal.sphere(eps), ids=ids),
                traversal.MinLabelVisitor(labels, gather_mask),
-               node_mask=node_mask)
+               node_mask=node_mask, walk_index=walk_index)
     return _scatter_back(segs.n_points, ids, tr.acc), tr
 
 
@@ -190,7 +190,7 @@ def _near_changed(keys: torch.Tensor, d: int, changed: torch.Tensor
 
 def _sweep_to_fixpoint(tree, segs, eps, core, labels0, *,
                        frontier: bool = True, collect_stats: bool = False,
-                       fused_init=None):
+                       fused_init=None, walk_index=None):
     """Hook+jump sweeps until the core-core components stabilize.
 
     Frontier restriction: labels only ever decrease and the hook is a
@@ -248,7 +248,7 @@ def _sweep_to_fixpoint(tree, segs, eps, core, labels0, *,
                    traversal.intersects(traversal.sphere(eps), ids=ids),
                    traversal.MinLabelVisitor(labels, gather_mask,
                                              mask_wide=gather_wide),
-                   node_mask=node_mask, **dual)
+                   node_mask=node_mask, walk_index=walk_index, **dual)
         dual = {}                 # only the first sweep may be split
         gather_wide = None
         new, changed, changed_flags = _post_sweep(tree, segs, labels, core,
@@ -278,7 +278,8 @@ def _sweep_to_fixpoint(tree, segs, eps, core, labels0, *,
     return labels, sweeps, stats
 
 
-def _assign_borders(tree, segs, eps, core, core_labels):
+def _assign_borders(tree, segs, eps, core, core_labels, *,
+                    walk_index=None):
     """Borders take the min adjacent core root; isolated non-core -> noise.
 
     Traverses a compacted non-core query set (usually a small minority),
@@ -288,7 +289,8 @@ def _assign_borders(tree, segs, eps, core, core_labels):
     vals = torch.where(core, core_labels, INT_MAX)
     gathered, _ = _gather_minlabel(tree, segs, eps, vals, core, ids,
                                    node_mask=_frontier_node_mask(tree, segs,
-                                                                 core))
+                                                                 core),
+                                   walk_index=walk_index)
     labels = torch.where(core, core_labels, gathered)
     return torch.where(labels == INT_MAX, -1, labels)
 
@@ -311,13 +313,16 @@ def _finalize(labels_sorted, order, n):
 
 def cluster_from_index(segs: grid.Segments, tree, eps: float, min_pts: int,
                        *, star: bool = False, frontier: bool = True,
-                       backend: str = "", with_stats: bool = False):
+                       backend: str = "", with_stats: bool = False,
+                       walk_index=None):
     """Run the clustering phases over a prebuilt (segments, tree) index.
 
     ``tree`` may be None when ``segs.n_segments == 1`` (single dense cell)
     or ``n == 1``: both return before any walk. Every walk runs on the
     index's device (the walk kernel on the card, the plain engine on the
-    CPU); ``backend`` only names the result.
+    CPU); ``backend`` only names the result. ``walk_index`` is the index's
+    packed layout for the walk kernel (``dispatch.Plan.walk_index``); on
+    the card it is packed here, once for all walks, when not given.
     """
     n = segs.n_points
     dev = segs.pts.device
@@ -342,18 +347,23 @@ def cluster_from_index(segs: grid.Segments, tree, eps: float, min_pts: int,
                            backend=backend)
         return (res, stats) if with_stats else res
 
+    if walk_index is None and dev.type == "cuda":
+        from repro_torch.kernels.walkpack import pack_index
+        walk_index = pack_index(tree, segs)
     core, labels0, vals0, absorbed, first = _fused_first_pass(
-        tree, segs, eps, min_pts)
+        tree, segs, eps, min_pts, walk_index=walk_index)
     core_labels, loop_sweeps, sweep_stats = _sweep_to_fixpoint(
         tree, segs, eps, core, labels0, frontier=frontier,
-        collect_stats=with_stats, fused_init=(vals0, absorbed))
+        collect_stats=with_stats, fused_init=(vals0, absorbed),
+        walk_index=walk_index)
     n_sweeps = 1 + loop_sweeps          # the fused pass is sweep #1
     n_traversals = n_sweeps
 
     if star:
         labels_sorted = torch.where(core, core_labels, -1)
     else:
-        labels_sorted = _assign_borders(tree, segs, eps, core, core_labels)
+        labels_sorted = _assign_borders(tree, segs, eps, core, core_labels,
+                                        walk_index=walk_index)
         n_traversals += 1
 
     labels, n_clusters = _finalize(labels_sorted, segs.order, n)

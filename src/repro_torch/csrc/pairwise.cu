@@ -1,4 +1,4 @@
-// Tile kernels of the tiled DBSCAN backend, one CUDA thread per query.
+// Tile kernels of the tiled DBSCAN backend.
 //
 // Replace the Pallas kernels `count_kernel` and `minlabel_kernel`
 // (src/repro/kernels/pairwise.py, launched by `pairwise_count` and
@@ -18,29 +18,66 @@
 // What bounds them on an H100: operations. Each query meets every
 // reference, about 2d + 4 float32 operations a pair, on data of a few
 // bytes a point, so the float rate is the limit, far above the point where
-// memory would be. The design: a block of 128 queries stages 128
-// references at a time (coordinates, their norms, and for minlabel labels
-// and masks) in shared memory, so each reference is read from device
-// memory once per block and then broadcast to all 128 threads; a loop over
-// the reference tiles inside the block takes the place of the TPU grid's
-// sequential reference dimension, and the ragged edge is masked by index
-// (the reference pads with +-1e30 coordinates instead, which never land
-// within eps, so the results are the same).
+// memory would be. At the tiled path's sizes (n <= 1024) the work is a few
+// microseconds of the card, so what matters first is spreading it over the
+// SMs.
+//   * count: one warp per query. Its 32 threads take every 32nd reference
+//     (neighbouring threads read neighbouring references), count their
+//     hits exactly in integers, and add the counts with a warp reduction;
+//     the sum is saturated at `cap` once, at the end, which equals the
+//     reference's per-tile min(out + hits, cap) because counts are
+//     non-negative. 1,000 queries make 125 blocks of 8 warps.
+//   * minlabel: one thread per query; a block of 128 queries stages 128
+//     references at a time (coordinates, norms, labels and masks) in shared
+//     memory, so each reference is read from device memory once per block
+//     and broadcast to all 128 threads; a loop over the reference tiles
+//     inside the block takes the place of the TPU grid's sequential
+//     reference dimension, and the ragged edge is masked by index (the
+//     reference pads with +-1e30 coordinates instead, which never land
+//     within eps, so the results are the same).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 128;  // queries per block = references per tile
+constexpr int kTile = 128;  // minlabel: queries a block = references a tile
+constexpr int kCountWarps = 8;  // count: queries (warps) per block
 constexpr int kMaxD = 16;
 constexpr int kIntMax = 0x7fffffff;
 
-template <bool MINLABEL>
-__global__ void __launch_bounds__(kTile) pairwise_kernel(
+__global__ void __launch_bounds__(kCountWarps * 32) count_kernel(
+    const float* __restrict__ q, const float* __restrict__ r, int nq, int nr,
+    int d, float eps2, int cap, int* __restrict__ out) {
+  const int i = blockIdx.x * kCountWarps + threadIdx.x / 32;
+  const int t = threadIdx.x % 32;
+  if (i >= nq) return;  // whole warps leave together
+  float qv[kMaxD];
+  float qn = 0.0f;
+  for (int k = 0; k < d; ++k) {
+    qv[k] = q[i * d + k];
+    qn = k == 0 ? qv[k] * qv[k] : __fmaf_rn(qv[k], qv[k], qn);
+  }
+  int cnt = 0;
+  for (int j = t; j < nr; j += 32) {
+    const float* rv = r + j * d;
+    float rn = rv[0] * rv[0];
+    float cross = qv[0] * rv[0];
+    for (int k = 1; k < d; ++k) {
+      rn = __fmaf_rn(rv[k], rv[k], rn);
+      cross = __fmaf_rn(qv[k], rv[k], cross);
+    }
+    const float d2 = (qn + rn) - 2.0f * cross;
+    cnt += d2 <= eps2 ? 1 : 0;
+  }
+  cnt = __reduce_add_sync(0xffffffffu, cnt);
+  if (t == 0) out[i] = cnt < cap ? cnt : cap;
+}
+
+__global__ void __launch_bounds__(kTile) minlabel_kernel(
     const float* __restrict__ q, const float* __restrict__ r,
     const int* __restrict__ labels_r, const uint8_t* __restrict__ mask_r,
-    int nq, int nr, int d, float eps2, int cap, int* __restrict__ out,
+    int nq, int nr, int d, float eps2, int* __restrict__ out,
     int* __restrict__ out_cnt) {
   extern __shared__ float smem[];
   float* r_tile = smem;                      // kTile * d
@@ -71,10 +108,8 @@ __global__ void __launch_bounds__(kTile) pairwise_kernel(
         rn = k == 0 ? v * v : __fmaf_rn(v, v, rn);
       }
       rn_tile[t] = rn;
-      if (MINLABEL) {
-        lab_tile[t] = labels_r[jr];
-        ok_tile[t] = mask_r[jr];
-      }
+      lab_tile[t] = labels_r[jr];
+      ok_tile[t] = mask_r[jr];
     }
     __syncthreads();
     const int width = min(kTile, nr - base);
@@ -84,25 +119,17 @@ __global__ void __launch_bounds__(kTile) pairwise_kernel(
         float cross = qv[0] * rv[0];
         for (int k = 1; k < d; ++k) cross = __fmaf_rn(qv[k], rv[k], cross);
         const float d2 = (qn + rn_tile[jj]) - 2.0f * cross;
-        if (MINLABEL) {
-          if (d2 <= eps2 && ok_tile[jj] != 0) {
-            ++cnt;
-            const int lab = lab_tile[jj];
-            best = lab < best ? lab : best;
-          }
-        } else {
-          cnt += d2 <= eps2 ? 1 : 0;
+        if (d2 <= eps2 && ok_tile[jj] != 0) {
+          ++cnt;
+          const int lab = lab_tile[jj];
+          best = lab < best ? lab : best;
         }
       }
     }
   }
   if (active) {
-    if (MINLABEL) {
-      out[i] = best;
-      out_cnt[i] = cnt;
-    } else {
-      out[i] = cnt < cap ? cnt : cap;
-    }
+    out[i] = best;
+    out_cnt[i] = cnt;
   }
 }
 
@@ -119,10 +146,10 @@ extern "C" int pairwise_count_launch(const float* q, const float* r, int nq,
                                      int nr, int d, float eps2, int cap,
                                      int* out, void* stream) {
   if (nq <= 0) return 0;
-  const dim3 grid((nq + kTile - 1) / kTile);
-  pairwise_kernel<false><<<grid, kTile, smem_bytes(d),
-                           static_cast<cudaStream_t>(stream)>>>(
-      q, r, nullptr, nullptr, nq, nr, d, eps2, cap, out, nullptr);
+  const dim3 grid((nq + kCountWarps - 1) / kCountWarps);
+  count_kernel<<<grid, kCountWarps * 32, 0,
+                 static_cast<cudaStream_t>(stream)>>>(q, r, nq, nr, d, eps2,
+                                                      cap, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -135,8 +162,8 @@ extern "C" int pairwise_minlabel_launch(const float* q, const float* r,
                                         int* out_cnt, void* stream) {
   if (nq <= 0) return 0;
   const dim3 grid((nq + kTile - 1) / kTile);
-  pairwise_kernel<true><<<grid, kTile, smem_bytes(d),
-                          static_cast<cudaStream_t>(stream)>>>(
-      q, r, labels_r, mask_r, nq, nr, d, eps2, 0, out_lab, out_cnt);
+  minlabel_kernel<<<grid, kTile, smem_bytes(d),
+                    static_cast<cudaStream_t>(stream)>>>(
+      q, r, labels_r, mask_r, nq, nr, d, eps2, out_lab, out_cnt);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,7 +23,7 @@ from repro.kernels import traverse as jkt  # noqa: E402
 from repro_torch.convert import index_from_numpy  # noqa: E402
 from repro_torch.core import traversal  # noqa: E402
 from repro_torch.data import pointclouds  # noqa: E402
-from repro_torch.kernels import traverse as kt  # noqa: E402
+from repro_torch.kernels import traverse as kt, walkpack  # noqa: E402
 
 INT_MAX = 2**31 - 1
 CPU = torch.device("cpu")
@@ -192,9 +192,7 @@ def test_kernel_entry_refuses_cpu_tensors(indexes):
         kt.walk(0, q=segs.pts, qid=z, self_id=z,
                 dense=torch.zeros(n, dtype=torch.bool), rank=z,
                 wide=torch.zeros(n, dtype=torch.bool), acc0=z, hits0=z,
-                pts=segs.pts, seg_start=segs.seg_start, seg_end=segs.seg_end,
-                dense_seg=segs.dense_seg, left=tree.left, miss=tree.miss,
-                box_lo=tree.box_lo, box_hi=tree.box_hi,
+                index=walkpack.pack_index(tree, segs),
                 r2=traversal.radius2(eps))
 
 
