@@ -4,8 +4,9 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version on the card
-(exact equality), drives the port's main path — ``repro_torch.dbscan(...,
-algorithm="auto")`` — at full size on two scenarios and on the tiled path,
+(exact equality; the tile kernels at widths from 1 to 64), drives the
+port's main path — ``repro_torch.dbscan(..., algorithm="auto")`` — at
+full size on two scenarios and on the tiled path at d = 2, 17 and 64,
 checks the results against a second backend and a blocked numpy oracle,
 and shows that every walk and tile of the main path ran as a kernel.
 
@@ -19,6 +20,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -66,7 +68,17 @@ WALK_SPEC = [("hacc_like", 16_384, 0.03, 5),
 # member tests the walk kernel loads together (csrc/walk.cu: kBatch)
 WALK_BATCH = 4
 TILE_SHAPES = [(1000, 1000), (130, 257), (7, 5), (64, 20000)]
+# widths of the tile checks: the compiled bodies (d <= 4), the unfused
+# norm (5, 8), 16 and 17 around the old limit of 16, and the windowed norm
+# (33, 64); each on uniform points and on boundary-grid points
+TILE_DS = (1, 2, 3, 4, 5, 8, 16, 17, 33, 64)
+# timed tile shapes (nq, nr, d): the tiled path's, a width above the old
+# limit, and the ring path's scale
+TILE_TIMED = [(1000, 1000, 2), (1000, 1000, 17), (16384, 16384, 3)]
 TILED_N = 1000
+# the tiled path beyond the tree backends' d in {2, 3}: (d, eps, min_pts)
+# on uniform separated points
+TILED_WIDE = [(17, 1.0, 5), (64, 2.6, 5)]
 
 
 def check(ok: bool, what: str) -> None:
@@ -219,10 +231,13 @@ def ptxas_registers(log: str) -> dict:
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
             walk = re.search(r"walk_kernelILi(\d)E([if])Li(\d)E", entry)
+            tile = re.search(r"\d([a-z]+_kernel)ILi(\d)E", entry)
             plain = re.search(r"\d([a-z][a-z_]*_kernel)", entry)
             if walk:        # walk_kernel<KIND, V, D>
                 entry = (f"kind{walk[1]}_{'f32' if walk[2] == 'f' else 'i32'}"
                          f"_d{walk[3]}")
+            elif tile:      # count_kernel<D>, minlabel_kernel<D>; 0: any d
+                entry = f"{tile[1]}_d{tile[2] if tile[2] != '0' else 'any'}"
             elif plain:
                 entry = plain[1]
         for w, nxt in zip(line.split(), line.split()[1:]):
@@ -544,83 +559,196 @@ def phase_walk_totals(runs) -> None:
             walk_device_ms=f"{ms:.4f}")
 
 
-def phase_tile_check() -> dict:
+def tile_eps(x: torch.Tensor, share: float = 0.05) -> float:
+    """An eps with about ``share`` of the pairs of ``x``'s first 200
+    points within it, so every width has hits to check."""
+    dist = torch.pdist(x[:200]).sort().values
+    return float(dist[int(share * (dist.numel() - 1))])
+
+
+@contextlib.contextmanager
+def forced_split(split: int):
+    """Make the tile wrappers launch with ``split`` warps a query."""
+    choose = pairwise.warps_per_query
+    pairwise.warps_per_query = lambda *_: split
+    try:
+        yield
+    finally:
+        pairwise.warps_per_query = choose
+
+
+def _same_tiles(q, r, lab, mask, eps, what: str) -> tuple[float, float]:
+    """Both tile kernels against their plain versions on one input (count
+    at cap 5 and uncapped), exact, at every number of warps a query in
+    ``pairwise.SPLITS``, not only the one the wrapper picks; the two
+    errors."""
+    caps = (5, ref.INT_MAX)
+    plain = [ref.pairwise_count_ref(q, r, eps, cap) for cap in caps]
+    pl_, pc = ref.pairwise_minlabel_ref(q, r, lab, mask, eps)
+    e = e2 = 0.0
+    for split in pairwise.SPLITS:
+        with forced_split(split):
+            got = [pairwise.pairwise_count(q, r, eps, cap) for cap in caps]
+            kl, kc = pairwise.pairwise_minlabel(q, r, lab, mask, eps)
+        e = max(e, max_abs_err(zip(got, plain)))
+        check(e == 0.0, f"pairwise_count {what} split={split}: kernel "
+                        f"differs from plain ({e})")
+        e2 = max(e2, max_abs_err([(kl, pl_), (kc, pc)]))
+        check(e2 == 0.0, f"pairwise_minlabel {what} split={split}: kernel "
+                         f"differs from plain ({e2})")
+    return e, e2
+
+
+def grid_points(n: int, d: int, g) -> tuple[torch.Tensor, float]:
+    """n points on a grid of step 0.1 with 1e-7 jitter, and an eps on one of
+    its distance shells, so many pairs lie at eps and the ulps around it
+    (the boundary data of tests/test_torch_pairwise.py): 12 levels and eps
+    0.3 at d <= 3; above, the levels {0, 0.1, 0.2} and eps 0.1 * sqrt(k),
+    k the median squared grid distance among the first 300 points."""
+    levels = 12 if d <= 3 else 3
+    cells = torch.randint(0, levels, (n, d), generator=g)
+    jitter = torch.rand(n, d, generator=g, dtype=torch.float64) * 2e-7 - 1e-7
+    pts = (cells * 0.1 + jitter).to(torch.float32).to(DEV)
+    if d <= 3:
+        return pts, 0.3
+    c = cells[:300]
+    k = ((c[:, None] - c[None]) ** 2).sum(-1).double().median()
+    return pts, 0.1 * float(k.sqrt())
+
+
+def _tile_edges(g) -> float:
+    """Minlabel's edge cases against the plain version and the expected
+    values: every mask zero; one query against one reference, within eps
+    and not; labels at INT_MAX - 1."""
+    err = 0.0
+    for d in (2, 17):
+        x = torch.rand(1000, d, generator=g).to(DEV)
+        eps = tile_eps(x)
+        lab = torch.arange(1000, dtype=torch.int32, device=DEV)
+        none = torch.zeros(1000, dtype=torch.bool, device=DEV)
+        kl, kc = pairwise.pairwise_minlabel(x, x, lab, none, eps)
+        check(bool((kl == ref.INT_MAX).all()) and bool((kc == 0).all()),
+              f"minlabel d={d}: hits with every mask zero")
+        err = max(err, *_same_tiles(x, x, lab, none, eps, f"d={d} mask 0"))
+        one = x[:1]
+        for r, want in ((one, (7, 1)), (one + 10 * eps, (ref.INT_MAX, 0))):
+            lab1 = torch.full((1,), 7, dtype=torch.int32, device=DEV)
+            mask1 = torch.ones(1, dtype=torch.bool, device=DEV)
+            kl, kc = pairwise.pairwise_minlabel(one, r, lab1, mask1, eps)
+            got = (int(kl[0]), int(kc[0]))
+            check(got == want, f"minlabel d={d}, 1 x 1: got {got}, want "
+                               f"{want}")
+            err = max(err, *_same_tiles(one, r, lab1, mask1, eps,
+                                        f"d={d} 1 x 1"))
+        big = torch.full((1000,), ref.INT_MAX - 1, dtype=torch.int32,
+                         device=DEV)
+        every = torch.ones(1000, dtype=torch.bool, device=DEV)
+        kl, kc = pairwise.pairwise_minlabel(x, x, big, every, eps)
+        check(bool((kl == ref.INT_MAX - 1).all()),
+              f"minlabel d={d}: labels at INT_MAX - 1 not kept")
+        err = max(err, *_same_tiles(x, x, big, every, eps,
+                                    f"d={d} labels INT_MAX - 1"))
+    return err
+
+
+def _tile_timing(nq: int, nr: int, d: int, g) -> dict:
+    """Both tile kernels timed at one shape: CUDA events around the
+    wrapper, device time (torch.profiler), the plain version, and beside
+    them a PyTorch reference point. Returns per kernel the kernel-table
+    fields and the device time."""
+    x = torch.rand(max(nq, nr), d, generator=g).to(DEV)
+    q, r = x[:nq], x[:nr]
+    eps = tile_eps(x, 0.01)
+    lab = torch.arange(nr, dtype=torch.int32, device=DEV)
+    mask = torch.ones(nr, dtype=torch.bool, device=DEV)
+    reps = 50 if nq * nr <= 10**7 else 5
+    # per pair: the dot product (1 mul, d - 1 fmas as 2 ops each), the
+    # distance (add, mul, sub) and the compare; per point its norm
+    flops = nq * nr * (2 * d + 3) + (nq + nr) * (2 * d - 1)
     out = {}
+    for name, fn, plain, other, other_name, n_bytes, ops in (
+            ("pairwise_count",
+             lambda: pairwise.pairwise_count(q, r, eps, 5),
+             lambda: ref.pairwise_count_ref(q, r, eps, 5),
+             lambda: (torch.cdist(q, r) <= eps).sum(1), "library",
+             nbytes(q, r) + 4 * nq, flops),
+            ("pairwise_minlabel",
+             lambda: pairwise.pairwise_minlabel(q, r, lab, mask, eps),
+             lambda: ref.pairwise_minlabel_ref(q, r, lab, mask, eps),
+             lambda: torch.where((torch.cdist(q, r) <= eps) & mask, lab,
+                                 ref.INT_MAX).amin(1), "composite",
+             nbytes(q, r, lab, mask) + 8 * nq, flops + nq * nr)):
+        ms = cuda_ms(fn, reps)
+        dev = device_ms(fn, reps, name.split("_")[1] + "_kernel")
+        plain_ms = cuda_ms(plain, 2)
+        other_ms = cuda_ms(other, reps)
+        other_dev = device_ms(other, reps)
+        b_ms, b_by = bound(n_bytes, ops)
+        # count: one PyTorch call computes the same function (the library
+        # yardstick); minlabel: none does, so the composite of several
+        # calls is a reference point only and its library cell stays null
+        out[name] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=other_ms if other_name == "library" else None,
+            device_ms=dev)
+        say("tile-time", kernel=name, nq=nq, nr=nr, d=d, eps=f"{eps:.5f}",
+            split=pairwise.warps_per_query(nq, nr, d), ms=f"{ms:.4f}",
+            device_ms=f"{dev:.4f}", plain_ms=f"{plain_ms:.3f}",
+            bound_ms=f"{b_ms:.5f}", bound_by=b_by,
+            **{f"{other_name}_ms": f"{other_ms:.4f}",
+               f"{other_name}_device_ms": f"{other_dev:.4f}"})
+    return out
+
+
+def phase_tile_check() -> dict:
+    """The tile kernels against their plain versions, exact, at every
+    width of ``TILE_DS`` over ``TILE_SHAPES`` on uniform and boundary-grid
+    points, at every number of warps a query, minlabel's edge cases and
+    the empty query set; then their times at ``TILE_TIMED``. Returns the
+    kernel-table fields at the tiled path's shape (the first)."""
     g = torch.Generator(device="cpu").manual_seed(1)
-    eps = 0.05
     errs = {"pairwise_count": 0.0, "pairwise_minlabel": 0.0}
     for nq, nr in TILE_SHAPES:
-        for d in (1, 2, 3, 5):
+        for d in TILE_DS:
             x = torch.rand(nq + nr, d, generator=g).to(DEV)
-            q, r = x[:nq], x[nq:]
-            lab = torch.randint(0, 1 << 20, (nr,), generator=g,
-                                dtype=torch.int32).to(DEV)
-            mask = (torch.rand(nr, generator=g) < 0.6).to(DEV)
-            for cap in (5, ref.INT_MAX):
-                e = max_abs_err([(pairwise.pairwise_count(q, r, eps, cap),
-                                  ref.pairwise_count_ref(q, r, eps, cap))])
-                check(e == 0.0, f"pairwise_count {nq}x{nr} d={d}: kernel "
-                                f"differs from plain ({e})")
+            data = [("uniform", x, tile_eps(x)),
+                    ("grid", *grid_points(nq + nr, d, g))]
+            for kind, x, eps in data:
+                q, r = x[:nq], x[nq:]
+                lab = torch.randint(0, 1 << 20, (nr,), generator=g,
+                                    dtype=torch.int32).to(DEV)
+                mask = (torch.rand(nr, generator=g) < 0.6).to(DEV)
+                e, e2 = _same_tiles(q, r, lab, mask, eps,
+                                    f"{kind} {nq}x{nr} d={d}")
                 errs["pairwise_count"] = max(errs["pairwise_count"], e)
-            kl, kc = pairwise.pairwise_minlabel(q, r, lab, mask, eps)
-            pl_, pc = ref.pairwise_minlabel_ref(q, r, lab, mask, eps)
-            e2 = max_abs_err([(kl, pl_), (kc, pc)])
-            check(e2 == 0.0, f"pairwise_minlabel {nq}x{nr} d={d}: kernel "
-                             f"differs from plain ({e2})")
-            errs["pairwise_minlabel"] = max(errs["pairwise_minlabel"], e2)
-            say("tile-check", nq=nq, nr=nr, d=d, max_abs_err=max(e, e2))
+                errs["pairwise_minlabel"] = max(errs["pairwise_minlabel"],
+                                                e2)
+                hits = ref.pairwise_count_ref(q, r, eps).double().mean()
+                say("tile-check", data=kind, nq=nq, nr=nr, d=d,
+                    eps=f"{eps:.4f}", mean_hits=f"{float(hits):.1f}",
+                    splits=",".join(map(str, pairwise.SPLITS)),
+                    picked=pairwise.warps_per_query(nq, nr, d),
+                    max_abs_err=max(e, e2))
+    e = _tile_edges(g)
+    errs["pairwise_minlabel"] = max(errs["pairwise_minlabel"], e)
+    say("tile-edges", cases="mask 0, 1 x 1 near and far, INT_MAX - 1",
+        widths="2,17", max_abs_err=e)
     # no queries: the wrappers return empty results without a launch
     before = (pairwise.pairwise_count.launches,
               pairwise.pairwise_minlabel.launches)
     none = torch.empty(0, 2, device=DEV)
     r = torch.rand(5, 2, generator=g).to(DEV)
     lab = torch.arange(5, dtype=torch.int32, device=DEV)
-    got = (pairwise.pairwise_count(none, r, eps),
-           *pairwise.pairwise_minlabel(none, r, lab, lab > 1, eps))
+    got = (pairwise.pairwise_count(none, r, 0.05),
+           *pairwise.pairwise_minlabel(none, r, lab, lab > 1, 0.05))
     check(all(t.shape == (0,) and t.dtype == torch.int32 for t in got)
           and before == (pairwise.pairwise_count.launches,
                          pairwise.pairwise_minlabel.launches),
           "a tile wrapper launched or misshaped an empty query set")
-    # times at the tiled path's shape: n = 1000 points against themselves
-    nq = nr = TILED_N
-    d = 2
-    pts = torch.rand(nq, d, generator=g).to(DEV)
-    lab = torch.arange(nq, dtype=torch.int32, device=DEV)
-    mask = torch.ones(nq, dtype=torch.bool, device=DEV)
-    flops = nq * nr * (2 * d + 3) + (nq + nr) * (2 * d - 1)
-    cnt_ms = cuda_ms(lambda: pairwise.pairwise_count(pts, pts, eps, 5), 50)
-    cnt_plain = cuda_ms(lambda: ref.pairwise_count_ref(pts, pts, eps, 5), 5)
-    lib_ms = cuda_ms(lambda: (torch.cdist(pts, pts) <= eps).sum(1), 50)
-    b_ms, b_by = bound(nbytes(pts, pts) + 4 * nq, flops)
-    out["pairwise_count"] = dict(max_abs_err=errs["pairwise_count"],
-                                 ms=cnt_ms, plain_ms=cnt_plain, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=lib_ms)
-    # device time alone: at this size a host call of the wrapper costs
-    # about as much as the kernel, and the event times above include it
-    dev = {"pairwise_count": device_ms(
-        lambda: pairwise.pairwise_count(pts, pts, eps, 5), 50,
-        "count_kernel"),
-        "pairwise_minlabel": device_ms(
-            lambda: pairwise.pairwise_minlabel(pts, pts, lab, mask, eps), 50,
-            "minlabel_kernel")}
-    lib_dev = device_ms(lambda: (torch.cdist(pts, pts) <= eps).sum(1), 50)
-    ml_ms = cuda_ms(lambda: pairwise.pairwise_minlabel(pts, pts, lab, mask,
-                                                       eps), 50)
-    ml_plain = cuda_ms(lambda: ref.pairwise_minlabel_ref(pts, pts, lab, mask,
-                                                         eps), 5)
-    b_ms2, b_by2 = bound(nbytes(pts, pts, lab, mask) + 8 * nq,
-                         flops + nq * nr)
-    out["pairwise_minlabel"] = dict(max_abs_err=errs["pairwise_minlabel"],
-                                    ms=ml_ms, plain_ms=ml_plain,
-                                    bound_ms=b_ms2, bound_by=b_by2,
-                                    library_ms=None)
-    for name, v in out.items():
-        say("tile-time", kernel=name, n=nq, ms=f"{v['ms']:.4f}",
-            device_ms=f"{dev[name]:.4f}", plain_ms=f"{v['plain_ms']:.3f}",
-            bound_ms=f"{v['bound_ms']:.5f}", library_ms=v["library_ms"],
-            library_device_ms=(f"{lib_dev:.4f}"
-                               if v["library_ms"] is not None else None))
-    return out
+    timed = [_tile_timing(nq, nr, d, g) for nq, nr, d in TILE_TIMED]
+    return {name: dict(max_abs_err=errs[name],
+                       **{k: x for k, x in v.items() if k != "device_ms"})
+            for name, v in timed[0].items()}
 
 
 # --------------------------------------------------------------------- #
@@ -654,15 +782,21 @@ def run_main_path():
             n_clusters=res.n_clusters, n_sweeps=res.n_sweeps,
             walk_launches=kt.walk.launches - before)
         out.append((dset, n, eps, mp, pts, plan, res, cluster_ms))
-    pts = separated(TILED_N, 2, 0.05, seed=3)
-    before = (pairwise.pairwise_count.launches,
-              pairwise.pairwise_minlabel.launches)
-    res = repro_torch.dbscan(pts, 0.05, 5)
-    torch.cuda.synchronize()
-    say("tiled", n=TILED_N, backend=res.backend, n_clusters=res.n_clusters,
-        count_launches=pairwise.pairwise_count.launches - before[0],
-        minlabel_launches=pairwise.pairwise_minlabel.launches - before[1])
-    out.append(("separated", TILED_N, 0.05, 5, pts, None, res, None))
+    for d, eps, mp in [(2, 0.05, 5), *TILED_WIDE]:
+        pts = separated(TILED_N, d, eps, seed=3)
+        before = (pairwise.pairwise_count.launches,
+                  pairwise.pairwise_minlabel.launches)
+        res = repro_torch.dbscan(pts, eps, mp)
+        torch.cuda.synchronize()
+        launched = (pairwise.pairwise_count.launches - before[0],
+                    pairwise.pairwise_minlabel.launches - before[1])
+        say("tiled", n=TILED_N, d=d, eps=eps, min_pts=mp,
+            backend=res.backend, n_clusters=res.n_clusters,
+            core=int(res.core_mask.sum()), count_launches=launched[0],
+            minlabel_launches=launched[1])
+        check(min(launched) > 0, f"tiled d={d}: a tile kernel never ran")
+        out.append((f"separated_d{d}", TILED_N, eps, mp, pts, None, res,
+                    None))
     return out
 
 
@@ -679,15 +813,19 @@ def check_main_path(runs, seen: dict) -> None:
     for dset, n, eps, mp, pts, plan, res, _ in runs:
         check_result(res, n, dset)
         if plan is None:
+            d = pts.shape[1]
             check(res.backend == "tiled", f"auto picked {res.backend} at "
-                                          f"n={n}, expected tiled")
-            other = repro_torch.dbscan(pts, eps, mp, algorithm="pallas-tree")
-            check(same_core_partition(res, other),
-                  "tiled result differs from the walk kernel's")
+                                          f"n={n} d={d}, expected tiled")
+            vs = "numpy oracle"
+            if d in (2, 3):     # the tree backends take d in {2, 3} only
+                other = repro_torch.dbscan(pts, eps, mp,
+                                           algorithm="pallas-tree")
+                check(same_core_partition(res, other),
+                      "tiled result differs from the walk kernel's")
+                vs = "pallas-tree + numpy oracle"
             validate.check_dbscan(pts, eps, mp, res.labels.cpu().numpy(),
                                   res.core_mask.cpu().numpy())
-            say("check", path="tiled", vs="pallas-tree + numpy oracle",
-                ok=True)
+            say("check", path=f"tiled d={d}", vs=vs, ok=True)
             continue
         check(res.backend == "pallas-tree",
               f"{dset}: auto resolved to {res.backend} on the card")

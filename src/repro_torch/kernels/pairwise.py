@@ -4,12 +4,13 @@
 kernels ``count_kernel`` and ``minlabel_kernel``
 (src/repro/kernels/pairwise.py). Each wrapper launches its kernel for CUDA
 tensors and takes the plain version in ``ref.py`` only for CPU tensors.
-Inputs of any floating dtype (fp16, fp32, fp64) are cast to float32 first,
-as the reference casts them.
+Both take points of any width d >= 1. Inputs of any floating dtype (fp16,
+fp32, fp64) are cast to float32 first, as the reference casts them.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -18,17 +19,19 @@ from repro_torch.core.traversal import radius2
 from . import ref
 
 INT_MAX = ref.INT_MAX
-MAX_D = 16          # the kernels keep a query's coordinates in registers
+SPLITS = (1, 2, 4, 8)   # warps a query: the block's 8 warps serve 8 / split
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+@functools.cache
 def _lib():
     lib = _build.load("pairwise")
-    lib.pairwise_count_launch.argtypes = [_P, _P, _I, _I, _I, _F, _I, _P, _P]
+    lib.pairwise_count_launch.argtypes = [_P, _P, _I, _I, _I, _F, _I, _I, _P,
+                                          _P]
     lib.pairwise_count_launch.restype = ctypes.c_int
     lib.pairwise_minlabel_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _F,
-                                             _P, _P, _P]
+                                             _I, _P, _P, _P]
     lib.pairwise_minlabel_launch.restype = ctypes.c_int
     return lib
 
@@ -53,9 +56,22 @@ def _check_card(q, what):
     if q.device.type != "cuda":
         raise ValueError(f"{what}: the kernel needs CUDA tensors, got "
                          f"{q.device}")
-    if not 1 <= q.shape[1] <= MAX_D:
-        raise ValueError(f"{what}: the kernel takes 1 <= d <= {MAX_D}, got "
+    if q.shape[1] < 1:
+        raise ValueError(f"{what}: the kernel takes d >= 1, got "
                          f"d={q.shape[1]}")
+
+
+def warps_per_query(nq: int, nr: int, d: int) -> int:
+    """How many warps share a query's references (one of ``SPLITS``): the
+    fewest that give the launch about 16 warps on each of the H100's 132
+    SMs (8 above d = 4, where a thread carries at most 8 / split dot
+    products across a tile's chunks, so a smaller share of a tile costs
+    more), and never more than the references keep busy (32 a warp)."""
+    wanted = 132 * (16 if d <= 4 else 8)
+    split = 1
+    while split < SPLITS[-1] and nq * split < wanted and 32 * split < nr:
+        split *= 2
+    return split
 
 
 def pairwise_count(points_q, points_r, eps, cap: int = INT_MAX):
@@ -69,7 +85,8 @@ def pairwise_count(points_q, points_r, eps, cap: int = INT_MAX):
         return out
     err = _lib().pairwise_count_launch(
         q.data_ptr(), r.data_ptr(), q.shape[0], r.shape[0], q.shape[1],
-        radius2(eps), int(cap), out.data_ptr(),
+        radius2(eps), int(cap),
+        warps_per_query(q.shape[0], r.shape[0], q.shape[1]), out.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "pairwise_count")
     pairwise_count.launches += 1
@@ -91,14 +108,15 @@ def pairwise_minlabel(points_q, points_r, labels_r, mask_r, eps):
                              f"{q.device}; got {tuple(x.shape)} on "
                              f"{x.device}")
     lab = labels_r.to(torch.int32).contiguous()
-    keep = (mask_r != 0).contiguous()
+    keep = (mask_r if mask_r.dtype == torch.bool else mask_r != 0).contiguous()
     out_l = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
     out_c = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
     if q.shape[0] == 0:             # nothing to launch, nothing counted
         return out_l, out_c
     err = _lib().pairwise_minlabel_launch(
         q.data_ptr(), r.data_ptr(), lab.data_ptr(), keep.data_ptr(),
-        q.shape[0], nr, q.shape[1], radius2(eps), out_l.data_ptr(),
+        q.shape[0], nr, q.shape[1], radius2(eps),
+        warps_per_query(q.shape[0], nr, q.shape[1]), out_l.data_ptr(),
         out_c.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "pairwise_minlabel")
     pairwise_minlabel.launches += 1

@@ -1,6 +1,6 @@
 """Time the PyTorch/CUDA port's walks on one GPU, to compare two trees.
 
-    python3 tools/walk_ab.py --src PATH/TO/src [--reps 7]
+    python3 tools/walk_ab.py --src PATH/TO/src [--reps 7] [--only tiles]
 
 Imports ``repro_torch`` from ``--src`` (this tree's ``src``, or that of
 another checkout, such as the parent commit unpacked by ``git archive``)
@@ -11,8 +11,21 @@ run CUDA events time the first pass and the first sweep (the run's walks 0
 and 1) and the whole run; one more warm run under ``torch.profiler`` sums
 the walk kernel's device time over all its launches (``walk_device_ms``)
 and the device time of every kernel, copy and memset of the run
-(``busy_device_ms``). It also times the two tile kernels and
-``torch.cdist`` by device time at the tiled path's 1000 x 1000 shape.
+(``busy_device_ms``).
+
+It also times the two tile kernels at five shapes (``TILE_SHAPES``: the
+tiled path's 1000 x 1000 at d = 2 and 3, the same at d = 17, and 16,384 x
+16,384 at d = 2 and 3, the ring path's scale): device time and CUDA events
+around the wrapper, and beside them ``(cdist(q, r) <= eps).sum(1)`` for
+the count and ``where((cdist(q, r) <= eps) & mask, labels,
+INT_MAX).amin(1)`` for the min-label (a reference point: no one PyTorch
+call computes it). Where the tree chooses how many warps share a query
+(``kernels.pairwise.warps_per_query``), every choice is timed too. Last,
+the tiled path itself (``dbscan`` on 1,000 uniform points, d = 2 and 17):
+the median warm time of ``--reps`` runs (CUDA events) and the device busy
+time of one more. A shape or width the tree refuses is reported with its
+error. ``--only tiles`` skips the walk scenarios.
+
 Prints the card's name and power limit and one line ``[times] {json}``
 with the medians and every sample.
 
@@ -29,11 +42,17 @@ import statistics
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 MAIN = [("hacc_like", 2_097_152, 0.00595, 5),
         ("portotaxi_like", 1_048_576, 0.00125, 50)]
 TIMED = {0: "first_pass_ms", 1: "first_sweep_ms"}
+TILE_SHAPES = [(1000, 1000, 2), (1000, 1000, 3), (1000, 1000, 17),
+               (16384, 16384, 2), (16384, 16384, 3)]
+# the tiled path: (n, d, eps, min_pts) on uniform points
+TILED = [(1000, 2, 0.05, 5), (1000, 17, 1.0, 5)]
+INT_MAX = 2**31 - 1
 
 
 def card() -> str:
@@ -45,8 +64,7 @@ def card() -> str:
 
 def device_ms(fn, reps: int, name=None) -> float:
     """Mean device milliseconds of the CUDA kernels ``fn()`` launches
-    (those whose name holds ``name``, or one of a tuple of names, or all),
-    over ``reps`` runs."""
+    (those whose name holds ``name``, or all), over ``reps`` runs."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -56,9 +74,7 @@ def device_ms(fn, reps: int, name=None) -> float:
         torch.cuda.synchronize()
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and (name is None or any(k in e.name for k in
-                                      ((name,) if isinstance(name, str)
-                                       else name))))
+             and (name is None or name in e.name))
     return us / 1e3 / reps
 
 
@@ -149,43 +165,97 @@ def scenario(port, fdbscan, pointclouds, dset, n, eps, mp, reps: int):
     return out
 
 
-def tiles() -> dict:
-    pairwise = importlib.import_module("repro_torch.kernels.pairwise")
+def _tile_shape(pairwise, nq: int, nr: int, d: int) -> dict:
     g = torch.Generator(device="cpu").manual_seed(1)
-    pts = torch.rand(1000, 2, generator=g).to("cuda")
-    lab = torch.arange(1000, dtype=torch.int32, device="cuda")
-    mask = torch.ones(1000, dtype=torch.bool, device="cuda")
-    eps = 0.05
-    return {
-        "pairwise_count_device_ms": device_ms(
-            lambda: pairwise.pairwise_count(pts, pts, eps, 5), 50,
-            ("count_kernel", "pairwise_kernel")),
-        "pairwise_minlabel_device_ms": device_ms(
-            lambda: pairwise.pairwise_minlabel(pts, pts, lab, mask, eps), 50,
-            ("minlabel_kernel", "pairwise_kernel")),
-        "cdist_device_ms": device_ms(
-            lambda: (torch.cdist(pts, pts) <= eps).sum(1), 50),
-        "pairwise_count_ms": events_ms(
-            lambda: pairwise.pairwise_count(pts, pts, eps, 5), 50),
-        "cdist_ms": events_ms(
-            lambda: (torch.cdist(pts, pts) <= eps).sum(1), 50),
-    }
+    x = torch.rand(max(nq, nr), d, generator=g).to("cuda")
+    q, r = x[:nq], x[:nr]
+    dist = torch.pdist(x[:200]).sort().values    # eps: 1% of pairs within
+    eps = float(dist[int(0.01 * (dist.numel() - 1))])
+    lab = torch.arange(nr, dtype=torch.int32, device="cuda")
+    mask = torch.ones(nr, dtype=torch.bool, device="cuda")
+    reps = 50 if nq * nr <= 10**7 else 5
+
+    def count():
+        return pairwise.pairwise_count(q, r, eps, 5)
+
+    def minlabel():
+        return pairwise.pairwise_minlabel(q, r, lab, mask, eps)
+
+    out = {"eps": eps}
+    try:
+        out.update(
+            count_device_ms=device_ms(count, reps, "count_kernel"),
+            minlabel_device_ms=device_ms(minlabel, reps, "minlabel_kernel"),
+            count_ms=events_ms(count, reps),
+            minlabel_ms=events_ms(minlabel, reps))
+    except ValueError as e:     # a width the tree's kernels refuse
+        out["refused"] = str(e)
+        return out
+    out.update(
+        cdist_device_ms=device_ms(lambda: (torch.cdist(q, r) <= eps).sum(1),
+                                  reps),
+        composite_device_ms=device_ms(
+            lambda: torch.where((torch.cdist(q, r) <= eps) & mask, lab,
+                                INT_MAX).amin(1), reps))
+    choose = getattr(pairwise, "warps_per_query", None)
+    if choose is not None:
+        out["split"] = choose(nq, nr, d)
+        out["by_split"] = {}
+        try:
+            for split in pairwise.SPLITS:
+                pairwise.warps_per_query = lambda *_, s=split: s
+                out["by_split"][split] = [
+                    device_ms(count, reps, "count_kernel"),
+                    device_ms(minlabel, reps, "minlabel_kernel")]
+        finally:
+            pairwise.warps_per_query = choose
+    return out
+
+
+def _tiled_path(port, n: int, d: int, eps: float, mp: int,
+                reps: int) -> dict:
+    pts = torch.from_numpy(np.random.default_rng(3).uniform(
+        0, 1, (n, d)).astype(np.float32)).to("cuda")
+
+    def run():
+        return port.dbscan(pts, eps, mp)
+
+    try:
+        res = run()                                   # cold
+    except ValueError as e:
+        return {"refused": str(e)}
+    samples = [events_ms(run, 1) for _ in range(reps)]
+    return {"backend": res.backend, "n_clusters": res.n_clusters,
+            "core": int(res.core_mask.sum()),
+            "cluster_ms": statistics.median(samples),
+            "busy_device_ms": device_ms(run, 1), "samples": samples}
+
+
+def tiles(port, reps: int) -> dict:
+    pairwise = importlib.import_module("repro_torch.kernels.pairwise")
+    out = {f"{nq}x{nr}_d{d}": _tile_shape(pairwise, nq, nr, d)
+           for nq, nr, d in TILE_SHAPES}
+    for n, d, eps, mp in TILED:
+        out[f"tiled_n{n}_d{d}"] = _tiled_path(port, n, d, eps, mp, reps)
+    return out
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True, help="the tree's src directory")
     ap.add_argument("--reps", type=int, default=7)
+    ap.add_argument("--only", choices=["tiles"],
+                    help="time only the tile kernels and the tiled path")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("walk_ab: no CUDA device")
     port, fdbscan, pointclouds = load_port(a.src)
     out = {"src": a.src, "card": card()}
     print(out["card"], flush=True)
-    for dset, n, eps, mp in MAIN:
+    for dset, n, eps, mp in MAIN if a.only is None else []:
         out[dset] = scenario(port, fdbscan, pointclouds, dset, n, eps, mp,
                              a.reps)
-    out["tiles"] = tiles()
+    out["tiles"] = tiles(port, a.reps)
     print("[times] " + json.dumps(out), flush=True)
 
 
