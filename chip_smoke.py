@@ -4,11 +4,14 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version on the card
-(exact equality; the tile kernels at widths from 1 to 64), drives the
-port's main path — ``repro_torch.dbscan(..., algorithm="auto")`` — at
-full size on two scenarios and on the tiled path at d = 2, 17 and 64,
-checks the results against a second backend and a blocked numpy oracle,
-and shows that every walk and tile of the main path ran as a kernel.
+(exact equality; the tile kernels at widths from 1 to 64; the k-NN walk at
+k = 1 to 100), drives the port's main paths at full size — clustering,
+``repro_torch.dbscan(..., algorithm="auto")``, on two scenarios and on the
+tiled path at d = 2, 17 and 64; neighbor queries, ``repro_torch.neighbors``
+``knn`` and ``neighbor_count``, on both scenarios — checks the results
+against a second backend and numpy oracles, shows that every walk and tile
+of each path ran as a kernel, and validates the metrics and trace of an
+instrumented clustering run (``repro_torch.obs``).
 
     python3 chip_smoke.py --profile    # adds a per-kernel time breakdown
 
@@ -20,6 +23,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import os
@@ -43,7 +47,8 @@ from repro_torch import _build  # noqa: E402
 from repro_torch.core import fdbscan, grid, lbvh, traversal  # noqa: E402
 from repro_torch.core import validate  # noqa: E402
 from repro_torch.data import pointclouds  # noqa: E402
-from repro_torch.kernels import pairwise, ref  # noqa: E402
+from repro_torch import obs  # noqa: E402
+from repro_torch.kernels import knn as kknn, pairwise, ref  # noqa: E402
 from repro_torch.kernels import traverse as kt, walkpack  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -79,6 +84,29 @@ TILED_N = 1000
 # the tiled path beyond the tree backends' d in {2, 3}: (d, eps, min_pts)
 # on uniform separated points
 TILED_WIDE = [(17, 1.0, 5), (64, 2.6, 5)]
+# the neighbor queries' main path on the scenarios of MAIN: (dataset, n, k)
+# for knn, and neighbor_count on the first at its eps (resident, and
+# external queries with a cap)
+NEIGHBORS = [("hacc_like", 2_097_152, 16), ("portotaxi_like", 1_048_576, 8)]
+NC_EXTERNAL, NC_CAP = 65_536, 5
+# queries of each full-size run held against the numpy oracle
+ORACLE_QUERIES = 256
+# the k-NN kernel against the plain engine: fdbscan indexes of both
+# scenarios and a radius cap for each that leaves some lists short. Small
+# indexes: an unbounded walk's length grows with n, and the plain engine
+# takes about 2 ms a step on the card (the walk of k = 100 is 3,753 steps
+# on hacc at 2,048 points, 11,564 at 16,384), so the long unbounded cases
+# run at unroll 4, a quarter of the steps
+KNN_CHECK = [("hacc_like", 2_048, 0.06), ("portotaxi_like", 2_048, 0.015)]
+# the kernel-table shape of the k-NN kernel: points of the hacc set as
+# external queries against its full index at its k, capped at its eps
+# (unbounded, the plain engine took 97 s on 4,096 uniform queries there);
+# the same queries unbounded are timed beside cdist + topk as a reference
+# point
+KNN_TIMED_QUERIES = 4096
+# resident lanes of the full porto index held against the plain engine at
+# its k, capped at its eps (about 1,000 plain steps at unroll 1)
+KNN_PORTO_LANES = 256
 
 
 def check(ok: bool, what: str) -> None:
@@ -106,25 +134,51 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, name: str | None = None) -> float:
+def device_ms(fn, reps: int, name: str | None = None,
+              per_call: int | None = None) -> float:
     """Mean device milliseconds of ``fn()`` over ``reps`` runs after one
     warm-up: the summed time of the CUDA kernels the profiler records
-    (those whose name holds ``name``, or all), over ``reps``."""
+    (those whose name holds ``name``, or all), over ``reps``.
+
+    The profiler must record at least ``per_call`` such kernels a call (by
+    default as many as it records in a profiled call of its own; a library
+    call may launch a few more in one call than in another); a session
+    that records fewer has lost some, says so and is taken again, at most
+    twice, before this raises. The session waits 50 ms on the host before
+    the first call and after the last kernel ends, so no kernel lies near
+    the window's edges."""
     from torch.profiler import ProfilerActivity, profile
+
+    def session(calls):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        return [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and (name is None or name in e.name)]
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and (name is None or name in e.name))
-    return us / 1e3 / reps
+    if per_call is None:
+        per_call = len(session(1))
+    check(per_call > 0, f"device_ms: the profiler recorded no kernel "
+                        f"{name or ''} of a call")
+    for _ in range(3):
+        us = session(reps)
+        if len(us) >= reps * per_call:
+            return sum(us) / 1e3 / reps
+        say("profiler", name=name, recorded=len(us),
+            launched=reps * per_call, retry=True)
+    raise RuntimeError(f"chip_smoke: the profiler recorded {len(us)} kernels "
+                       f"{name or ''} in {reps} calls, not {reps * per_call}")
 
 
 def reset_counts() -> None:
     kt.walk.launches = 0
+    kknn.walk.launches = 0
     walkpack.pack_index.builds = 0
     pairwise.pairwise_count.launches = 0
     pairwise.pairwise_minlabel.launches = 0
@@ -133,6 +187,7 @@ def reset_counts() -> None:
 
 def counts() -> dict:
     return {"walk": kt.walk.launches,
+            "knn": kknn.walk.launches,
             "pairwise_count": pairwise.pairwise_count.launches,
             "pairwise_minlabel": pairwise.pairwise_minlabel.launches,
             "plain_walk_runs": traversal.traverse.runs,
@@ -232,10 +287,13 @@ def ptxas_registers(log: str) -> dict:
             entry = line.split("'")[1]
             walk = re.search(r"walk_kernelILi(\d)E([if])Li(\d)E", entry)
             tile = re.search(r"\d([a-z]+_kernel)ILi(\d)E", entry)
+            knn = re.search(r"knn_kernelILi(\d)E", entry)
             plain = re.search(r"\d([a-z][a-z_]*_kernel)", entry)
             if walk:        # walk_kernel<KIND, V, D>
                 entry = (f"kind{walk[1]}_{'f32' if walk[2] == 'f' else 'i32'}"
                          f"_d{walk[3]}")
+            elif knn:       # knn_kernel<D>
+                entry = f"knn_d{knn[1]}"
             elif tile:      # count_kernel<D>, minlabel_kernel<D>; 0: any d
                 entry = f"{tile[1]}_d{tile[2] if tile[2] != '0' else 'any'}"
             elif plain:
@@ -551,11 +609,12 @@ def phase_walk_totals(runs) -> None:
         if plan is None:
             continue
         before = kt.walk.launches
+        repro_torch.dbscan(pts, eps, mp, query_plan=plan)
+        launches = kt.walk.launches - before
         ms = device_ms(lambda: repro_torch.dbscan(pts, eps, mp,
                                                   query_plan=plan),
-                       1, name="walk_kernel")
-        say("walk-total", dataset=dset, n=n,
-            launches=(kt.walk.launches - before) // 2,
+                       1, "walk_kernel", per_call=launches)
+        say("walk-total", dataset=dset, n=n, launches=launches,
             walk_device_ms=f"{ms:.4f}")
 
 
@@ -679,7 +738,7 @@ def _tile_timing(nq: int, nr: int, d: int, g) -> dict:
                                  ref.INT_MAX).amin(1), "composite",
              nbytes(q, r, lab, mask) + 8 * nq, flops + nq * nr)):
         ms = cuda_ms(fn, reps)
-        dev = device_ms(fn, reps, name.split("_")[1] + "_kernel")
+        dev = device_ms(fn, reps, name.split("_")[1] + "_kernel", 1)
         plain_ms = cuda_ms(plain, 2)
         other_ms = cuda_ms(other, reps)
         other_dev = device_ms(other, reps)
@@ -935,23 +994,548 @@ def phase_profile(runs) -> None:
                 share=f"{ms / busy:.3f}", name=repr(name[:60]))
 
 
+# --------------------------------------------------------------------- #
+# the k-NN walk kernel and the neighbor queries                          #
+# --------------------------------------------------------------------- #
+
+def np_fma(a, b, c):
+    """Correctly rounded float32 ``a * b + c`` in numpy: the float64 sum of
+    the exact product is rounded to odd, then once to float32."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    cd = c.astype(np.float64)
+    s = p + cd
+    bv = s - p
+    err = (p - (s - bv)) + (cd - bv)
+    bits = s.view(np.int64)
+    nudge = (err != 0) & ((bits & 1) == 0)
+    away = (err > 0) == (s > 0)
+    bits = np.where(nudge, np.where(away, bits + 1, bits - 1), bits)
+    return bits.view(np.float64).astype(np.float32)
+
+
+def np_d2(q: np.ndarray, p: np.ndarray) -> np.ndarray:
+    """float32 squared distances rounded as the walk rounds them: the first
+    axis's square, then one fused multiply-add per axis."""
+    diff = (q - p).astype(np.float32)
+    out = diff[..., 0] * diff[..., 0]
+    for c in range(1, diff.shape[-1]):
+        out = np_fma(diff[..., c], diff[..., c], out)
+    return out
+
+
+def _near(q: np.ndarray, pts: np.ndarray, r2: float) -> np.ndarray:
+    """Ids whose float64 squared distance to ``q`` is within ``r2`` plus a
+    margin above the float32 roundings: a superset of the float32 hits."""
+    d64 = np.zeros(len(pts))
+    for c in range(pts.shape[1]):
+        d64 += (np.float64(q[c]) - pts[:, c].astype(np.float64)) ** 2
+    return np.flatnonzero(d64 <= r2 * (1 + 1e-5) + 1e-30), d64
+
+
+def oracle_knn(pts: np.ndarray, q: np.ndarray, k: int, radius=None):
+    """Brute-force k nearest of one query: the stable argsort of its
+    float32 distance row (ties to the smaller index), over a candidate set
+    chosen in float64 with a margin. Returns (ids, d2), -1/inf padded."""
+    d64 = np.zeros(len(pts))
+    for c in range(pts.shape[1]):
+        d64 += (np.float64(q[c]) - pts[:, c].astype(np.float64)) ** 2
+    kk = min(k, len(pts))
+    kth = np.partition(d64, kk - 1)[kk - 1]
+    cand = np.flatnonzero(d64 <= kth * (1 + 1e-5) + 1e-30)
+    d2 = np_d2(q[None, :], pts[cand])
+    if radius is not None:
+        r32 = np.float32(radius)
+        keep = d2 <= r32 * r32
+        cand, d2 = cand[keep], d2[keep]
+    order = np.lexsort((cand, d2))[:k]
+    ids = np.full(k, -1, np.int64)
+    dd = np.full(k, np.inf, np.float32)
+    ids[:len(order)] = cand[order]
+    dd[:len(order)] = d2[order]
+    return ids, dd
+
+
+def oracle_count(pts: np.ndarray, q: np.ndarray, r: float, cap: int) -> int:
+    """|N_r(q)| by brute force in the walk's float32 rounding, capped."""
+    r32 = np.float32(r)
+    cand, _ = _near(q, pts, float(r32) * float(r32))
+    d2 = np_d2(q[None, :], pts[cand])
+    return min(int((d2 <= r32 * r32).sum()), cap)
+
+
+def _knn_index(dset: str, n: int):
+    pts = torch.from_numpy(pointclouds.load(dset, n)).to(DEV)
+    segs = grid.build_segments_fdbscan(pts)
+    tree = lbvh.build_tree(segs.codes, segs.prim_lo, segs.prim_hi)
+    return segs, tree, walkpack.pack_index(tree, segs)
+
+
+def _same_knn(name: str, k, p) -> float:
+    """Exact equality of a kernel k-NN walk and a plain one: ids, evals
+    and iters equal, d2 bit for bit. Returns the error (0)."""
+    e = max_abs_err([(k.carry.ids, p.carry.ids), (k.evals, p.evals),
+                     (k.iters, p.iters)])
+    same = (k.carry.d2.shape == p.carry.d2.shape
+            and torch.equal(k.carry.d2.view(torch.int32),
+                            p.carry.d2.view(torch.int32)))
+    check(e == 0.0 and same, f"knn {name}: kernel differs from plain "
+                             f"(max abs err {e}, d2 bitwise {same})")
+    return e
+
+
+def _check_knn(name, segs, tree, index, pred, unrolls=(1,)):
+    """The k-NN kernel against the plain engine at each unroll, exact.
+    Returns (error, seconds of plain walks, kernel trace at unroll 1)."""
+    err, plain_s, first = 0.0, 0.0, None
+    for unroll in unrolls:
+        before = kknn.walk.launches
+        k = kknn.traverse(tree, segs, pred, unroll=unroll, walk_index=index)
+        lanes = int(k.evals.shape[0])
+        check(kknn.walk.launches - before == int(lanes > 0),
+              f"knn {name}: launches do not match its lanes")
+        t0 = time.perf_counter()
+        p = traversal.traverse(
+            tree, segs, pred,
+            traversal.KNNVisitor(pred.k, id_map=segs.order), unroll=unroll)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        err = max(err, _same_knn(f"{name} unroll={unroll}", k, p))
+        first = first or k
+    return err, plain_s, first
+
+
+def phase_knn_check() -> float:
+    """The k-NN walk kernel against the plain engine on the card, exact
+    (ids and d2 bit for bit, evals, iters at unroll 1 and 4), on fdbscan
+    indexes of both scenarios: k = 1, 2, 16 and 100, each with and without
+    a radius cap; 1, 31, 33 and 4,099 resident lanes, inert lanes and
+    4,096 external lanes; then on the 7 x 7 lattice of
+    tests/test_neighbors.py (exact ties) against the plain engine and the
+    numpy oracle. The main path's own full-size results are held against
+    the plain engine (external lanes, capped) in :func:`phase_knn_timing`
+    and against the numpy oracle in :func:`check_neighbors`."""
+    err = 0.0
+    t_all = time.perf_counter()
+    for dset, n, r in KNN_CHECK:
+        segs, tree, index = _knn_index(dset, n)
+        d = segs.pts.shape[1]
+        g = torch.Generator(device="cpu").manual_seed(4)
+
+        def ids(lanes):
+            # sorted resident ids; more lanes than points repeat ids
+            return torch.randint(0, n, (lanes,), generator=g).sort().values.to(
+                DEV, torch.int32)
+
+        lanes = ids(4099)
+        ext = torch.rand(4096, d, generator=g).to(DEV)
+        nearest = traversal.nearest
+        cases = [
+            ("4099 lanes k=1", nearest(1, ids=lanes), (4,)),
+            ("4099 lanes k=16", nearest(16, ids=lanes), (4,)),
+            ("1 lane k=100", nearest(100, ids=ids(1)), (4,)),
+            ("4099 lanes k=2 r", nearest(2, r, ids=lanes), (1,)),
+            ("4099 lanes k=16 r", nearest(16, r, ids=lanes), (1, 4)),
+            ("1 lane k=100 r", nearest(100, r, ids=ids(1)), (1,)),
+            ("31 lanes k=2", nearest(2, ids=ids(31)), (1,)),
+            ("33 lanes k=16 r", nearest(16, r, ids=ids(33)), (1,)),
+            ("100 inert lanes k=16", nearest(
+                16, ids=torch.full((100,), -1, dtype=torch.int32,
+                                   device=DEV)), (1,)),
+            ("4096 external k=1 r", nearest(1, r, pts=ext), (1,)),
+            ("4096 external k=16", nearest(16, pts=ext), (4,)),
+            ("4096 external k=100 r", nearest(100, r, pts=ext), (1,))]
+        for name, pred, unrolls in cases:
+            e, plain_s, k = _check_knn(f"{dset} {name}", segs, tree, index,
+                                       pred, unrolls)
+            err = max(err, e)
+            if name.startswith("100 inert"):
+                check(int(k.iters.sum()) == 0
+                      and bool((k.carry.ids == -1).all()),
+                      "inert k-NN lanes did work")
+            say("knn-check", dataset=dset, n=n, d=d, case=repr(name),
+                unrolls=",".join(map(str, unrolls)),
+                evals=int(k.evals.sum()), iters_max=int(k.iters.max()),
+                filled=f"{float((k.carry.ids >= 0).float().mean()):.3f}",
+                plain_s=f"{plain_s:.1f}", max_abs_err=e)
+    # the lattice: integer coordinates, so equidistant rings are true ties
+    xy = np.stack(np.meshgrid(np.arange(7.0), np.arange(7.0)), -1)
+    lat = xy.reshape(-1, 2).astype(np.float32)
+    lat = lat[np.random.default_rng(1).permutation(len(lat))]
+    segs = grid.build_segments_fdbscan(torch.from_numpy(lat).to(DEV))
+    tree = lbvh.build_tree(segs.codes, segs.prim_lo, segs.prim_hi)
+    index = walkpack.pack_index(tree, segs)
+    sorted_q = segs.pts.cpu().numpy()
+    centre = np.array([[3.0, 3.0]], np.float32)
+    for k, q in ((2, None), (3, None), (4, None), (6, None), (3, centre)):
+        pred = traversal.nearest(
+            k, pts=None if q is None else torch.from_numpy(q).to(DEV))
+        e, _, kk = _check_knn(f"lattice k={k}", segs, tree, index, pred,
+                              (1, 4))
+        err = max(err, e)
+        qs = sorted_q if q is None else q
+        for i, qi in enumerate(qs):
+            want, _ = oracle_knn(lat, qi, k)
+            check(np.array_equal(kk.carry.ids[i].cpu().numpy(), want),
+                  f"lattice k={k} query {i}: kernel ids differ from oracle")
+    say("knn-lattice", n=49, ks="2,3,4,6,centre", unrolls="1,4",
+        max_abs_err=err)
+    say("knn-check-time", seconds=f"{time.perf_counter() - t_all:.1f}")
+    return err
+
+
+class _WeightSum(traversal.Visitor):
+    """A user's visitor for ``radius_visit``: sum(weights[j]) over the
+    in-radius neighbors, a bare-tensor carry."""
+
+    def __init__(self, weights):
+        self.weights = weights
+
+    def init_carry(self, ids, external, segs):
+        return torch.zeros(ids.shape, dtype=self.weights.dtype,
+                           device=ids.device)
+
+    def visit(self, carry, j, d2, hit, ctx):
+        return carry + torch.where(hit, self.weights[j], 0), hit
+
+
+def _sampled(n: int, seed: int) -> np.ndarray:
+    return np.sort(np.random.default_rng(seed).choice(n, ORACLE_QUERIES,
+                                                      replace=False))
+
+
+def run_neighbors():
+    """Drive the neighbor queries' main path at full size: ``knn`` on both
+    scenarios (cold: with the index build; then warm), ``neighbor_count``
+    on hacc resident and on external queries with a cap. Returns the
+    results and timings for the checks."""
+    out = {}
+    for dset, n, k in NEIGHBORS:
+        pts = pointclouds.load(dset, n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = repro_torch.neighbors.knn(pts, k)           # cold: plans
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = repro_torch.neighbors.knn(pts, k)
+        end.record()
+        torch.cuda.synchronize()
+        out[("knn", dset)] = (pts, k, res, cold_s, start.elapsed_time(end))
+    dset, n, eps, _ = MAIN[0]
+    pts = pointclouds.load(dset, n)
+    ext = np.random.default_rng(6).uniform(0, 1, (NC_EXTERNAL, 3)).astype(
+        np.float32)
+    for name, kw in (("resident", {}),
+                     ("external", dict(query_pts=ext, cap=NC_CAP))):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = repro_torch.neighbors.neighbor_count(pts, eps, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        out[("count", name)] = (pts, kw, got, start.elapsed_time(end))
+    return out
+
+
+def check_neighbors(out: dict, seen: dict) -> None:
+    """The neighbor path's launches, and its results against the numpy
+    oracles on sampled queries."""
+    check(seen["knn"] >= 2 * len(NEIGHBORS),
+          f"the k-NN kernel ran {seen['knn']} times on the neighbor path")
+    check(seen["walk"] >= 2, f"the walk kernel ran {seen['walk']} times for "
+                             "neighbor_count")
+    check(seen["plain_walk_runs"] == 0, f"the plain walk ran "
+          f"{seen['plain_walk_runs']} times on the neighbor path")
+    for dset, n, k in NEIGHBORS:
+        pts, k, res, cold_s, warm_ms = out[("knn", dset)]
+        check(tuple(res.indices.shape) == (n, k)
+              and res.indices.dtype == torch.int32
+              and res.distances.dtype == torch.float32
+              and res.indices.device.type == "cuda", f"knn {dset} malformed")
+        rows = _sampled(n, 7)
+        got_i = res.indices[torch.from_numpy(rows).to(DEV)].cpu().numpy()
+        got_d = res.distances[torch.from_numpy(rows).to(DEV)].cpu().numpy()
+        check(not got_d[:, 0].any(),
+              f"knn {dset}: a query is not at distance 0 from itself")
+        for row, gi, gd in zip(rows, got_i, got_d):
+            want_i, want_d2 = oracle_knn(pts, pts[row], k)
+            want_d = np.sqrt(want_d2.astype(np.float64)).astype(np.float32)
+            check(np.array_equal(gi, want_i)
+                  and np.array_equal(gd.view(np.int32), want_d.view(np.int32)),
+                  f"knn {dset} query {row}: {gi} {gd} != oracle {want_i} "
+                  f"{want_d}")
+        say("neighbors", call=f"knn k={k}", dataset=dset, n=n,
+            cold_s=f"{cold_s:.3f}", warm_ms=f"{warm_ms:.1f}",
+            out_mb=f"{nbytes(*res) / 1e6:.0f}",
+            oracle_queries=len(rows), ok=True)
+    for name in ("resident", "external"):
+        pts, kw, got, ms = out[("count", name)]
+        q = kw.get("query_pts", pts)
+        cap = kw.get("cap", traversal.INT_MAX)
+        check(tuple(got.shape) == (len(q),) and got.dtype == torch.int32,
+              f"neighbor_count {name} malformed")
+        rows = _sampled(len(q), 8)
+        got_np = got.cpu().numpy()
+        eps = MAIN[0][2]
+        for row in rows:
+            want = oracle_count(pts, q[row], eps, cap)
+            check(int(got_np[row]) == want,
+                  f"neighbor_count {name} query {row}: {got_np[row]} != "
+                  f"oracle {want}")
+        say("neighbors", call=f"neighbor_count {name}", n=len(pts),
+            queries=len(q), r=eps, cap=cap, ms=f"{ms:.1f}",
+            mean_count=f"{float(got.double().mean()):.2f}",
+            oracle_queries=len(rows), ok=True)
+
+
+def phase_radius_visit() -> None:
+    """``radius_visit`` with a user's visitor on the card: the plain
+    engine on the index's device, against a dense numpy oracle on points
+    with no pair near the radius."""
+    r = 0.03
+    pts = separated(4096, 2, r, seed=12)
+    w = np.random.default_rng(3).integers(1, 10, size=4096).astype(np.int32)
+    p = repro_torch.plan(pts, r, 5, algorithm="fdbscan")
+    order = p.segs.order.cpu().numpy()
+    runs = traversal.traverse.runs
+    tr = repro_torch.neighbors.radius_visit(
+        pts, r, _WeightSum(torch.from_numpy(w[order]).to(DEV)))
+    check(tr.carry.device.type == "cuda" and traversal.traverse.runs == runs + 1,
+          "radius_visit did not run the plain engine on the card")
+    got = np.zeros(4096, np.int64)
+    got[order] = tr.carry.cpu().numpy()
+    x = pts.astype(np.float64)
+    d2 = ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    want = np.where(d2 <= r * r, w[None, :], 0).sum(1)
+    check(np.array_equal(got, want), "radius_visit differs from the oracle")
+    say("radius-visit", n=4096, r=r, device=tr.carry.device.type,
+        evals=int(tr.evals.sum()), ok=True)
+
+
+def phase_knn_timing(out: dict) -> dict:
+    """The k-NN kernel's table row, and the main path's indexes held
+    against the plain engine. At full size (all hacc lanes, k as in
+    NEIGHBORS): the launch's time, and the bound from the run's own evals
+    and node visits. At the table shape (KNN_TIMED_QUERIES points of the
+    set as external queries on the full hacc index, capped at its eps):
+    CUDA events around the wrapper, device time, the plain engine on the
+    same inputs (held equal), and the bound. On the full porto index at
+    its k, KNN_PORTO_LANES resident lanes capped at its eps, held against
+    the plain engine at unroll 1 and 4. As a reference point, the table
+    shape's queries unbounded: the launch's time beside the device time
+    of ``cdist`` + ``topk`` (whose tie rule differs)."""
+    dset, n, k = NEIGHBORS[0]
+    eps = MAIN[0][2]
+    pts = out[("knn", dset)][0]
+    p = repro_torch.plan(pts, 0.0, 1, algorithm="fdbscan")
+    segs, tree, index = p.segs, p.tree, p.walk_index
+    d = segs.pts.shape[1]
+    idx_bytes = nbytes(*index, segs.order)
+    # bytes a node visit and a member test read: the 32-byte record (and
+    # a leaf's end in 3-D); the point and, for a hit, its original id
+    visit_b = 32 + (4 if d == 3 else 0)
+    test_b = index.pts.shape[1] * 4 + 4
+
+    def bound_of(tr, lanes):
+        # member test: d subs, 1 mul + (d-1) fmas, 1 compare (3d); node
+        # test: 2d subs, 2d maxes, 2d - 1 for the squares, 1 compare (6d);
+        # iters at unroll 1 count every work unit. Bytes: the index records
+        # the walks read, each once, at most all of the index; the lanes
+        # read once and the outputs written once
+        evals = float(tr.evals.sum())
+        visits = float(tr.iters.sum()) - evals
+        read = min(idx_bytes, visits * visit_b + evals * test_b)
+        io = lanes * (4 * d + 4) + lanes * (8 * k + 8)
+        return bound(read + io, evals * 3 * d + visits * 6 * d)
+
+    def counters(tr):
+        return dict(member_tests=int(tr.evals.sum()),
+                    node_visits=int(tr.iters.sum() - tr.evals.sum()),
+                    iters_max=int(tr.iters.max()))
+
+    # launches of 30 ms to 2 s: timed with CUDA events
+    every = traversal.nearest(k)
+    full = kknn.traverse(tree, segs, every, unroll=1, walk_index=index)
+    full_ms = cuda_ms(lambda: kknn.traverse(tree, segs, every,
+                                            walk_index=index), 1)
+    fb_ms, fb_by = bound_of(full, n)
+    say("knn-time", shape=f"{dset} all {n} lanes k={k}",
+        ms=f"{full_ms:.3f}", bound_ms=f"{fb_ms:.5f}", bound_by=fb_by,
+        **counters(full))
+    del full
+    # the queries: points of the set (so most lie in halos, where the
+    # lists fill within eps), as external lanes
+    g = torch.Generator(device="cpu").manual_seed(9)
+    q = segs.pts[torch.randperm(n, generator=g)[:KNN_TIMED_QUERIES].to(DEV)]
+    capped = traversal.nearest(k, eps, pts=q)
+    ms = cuda_ms(lambda: kknn.traverse(tree, segs, capped, walk_index=index),
+                 5)
+    dev_ms = device_ms(lambda: kknn.traverse(tree, segs, capped,
+                                             walk_index=index),
+                       5, "knn_kernel", 1)
+    k1 = kknn.traverse(tree, segs, capped, unroll=1, walk_index=index)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = traversal.traverse(tree, segs, capped,
+                               traversal.KNNVisitor(k, id_map=segs.order),
+                               unroll=1)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    e = _same_knn(f"{dset} {KNN_TIMED_QUERIES} external, r = eps", k1, plain)
+    b_ms, b_by = bound_of(k1, KNN_TIMED_QUERIES)
+    say("knn-time", shape=f"{dset} {KNN_TIMED_QUERIES} external k={k} "
+        f"r={eps}", ms=f"{ms:.4f}", device_ms=f"{dev_ms:.4f}",
+        plain_ms=f"{plain_ms:.0f}", bound_ms=f"{b_ms:.5f}", bound_by=b_by,
+        filled=f"{float((k1.carry.ids >= 0).float().mean()):.3f}",
+        max_abs_err=e, **counters(k1))
+    # the full porto index: resident lanes at its k, capped at its eps
+    pdset, pn, pk = NEIGHBORS[1]
+    pp = repro_torch.plan(out[("knn", pdset)][0], 0.0, 1,
+                          algorithm="fdbscan")
+    lanes = torch.randperm(pn, generator=g)[:KNN_PORTO_LANES].sort().values
+    pred = traversal.nearest(pk, MAIN[1][2], ids=lanes.to(DEV, torch.int32))
+    pe, plain_s, pk1 = _check_knn(f"{pdset} {KNN_PORTO_LANES} lanes, r = eps",
+                                  pp.segs, pp.tree, pp.walk_index, pred,
+                                  (1, 4))
+    e = max(e, pe)
+    say("knn-check", dataset=pdset, n=pn, d=2,
+        case=repr(f"{KNN_PORTO_LANES} lanes k={pk} r"), unrolls="1,4",
+        evals=int(pk1.evals.sum()), iters_max=int(pk1.iters.max()),
+        filled=f"{float((pk1.carry.ids >= 0).float().mean()):.3f}",
+        plain_s=f"{plain_s:.1f}", max_abs_err=pe)
+    unbounded = traversal.nearest(k, pts=q)
+    ub_ms_run = cuda_ms(lambda: kknn.traverse(tree, segs, unbounded,
+                                              walk_index=index), 3)
+    ub = kknn.traverse(tree, segs, unbounded, unroll=1, walk_index=index)
+    ub_ms, ub_by = bound_of(ub, KNN_TIMED_QUERIES)
+    x = segs.pts
+
+    def cdist_topk():
+        # in four chunks of queries: the whole distance matrix would take
+        # 34 GB
+        for c in q.split(KNN_TIMED_QUERIES // 4):
+            torch.cdist(c, x).topk(k, largest=False)
+
+    lib_ms = cuda_ms(cdist_topk, 2)
+    lib_dev = device_ms(cdist_topk, 2)
+    say("knn-time", shape=f"{dset} {KNN_TIMED_QUERIES} external k={k}",
+        ms=f"{ub_ms_run:.3f}", bound_ms=f"{ub_ms:.5f}", bound_by=ub_by,
+        cdist_topk_ms=f"{lib_ms:.3f}", cdist_topk_device_ms=f"{lib_dev:.3f}",
+        **counters(ub))
+    return dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def phase_obs(runs) -> None:
+    """The hacc clustering run under ``obs.instrumented(sync=True)``: the
+    snapshot and trace validate, ``traversal_evals_total`` summed over
+    phases equals the summed evals of the run's own walks and the launch
+    counter the walk kernel's launches; then the warm time with and
+    without collectors, eight of each in turns (the observer cost)."""
+    dset, n, eps, mp, pts, plan, res0, _ = runs[0]
+    evals = []
+
+    def counted(*args, **kw):
+        tr = walk_fn(*args, **kw)
+        evals.append(int(tr.evals.sum()))
+        return tr
+
+    fdbscan._walk, walk_fn = counted, fdbscan._walk
+    try:
+        before = kt.walk.launches
+        with obs.instrumented(sync=True) as (reg, tracer):
+            res = repro_torch.dbscan(pts, eps, mp, query_plan=plan)
+        launched = kt.walk.launches - before
+    finally:
+        fdbscan._walk = walk_fn
+    check(torch.equal(res.labels, res0.labels)
+          and torch.equal(res.core_mask, res0.core_mask),
+          "the instrumented run changed the result")
+    doc = reg.snapshot()
+    obs.metrics.validate_snapshot(doc)
+    tdoc = tracer.to_dict()
+    obs.trace.validate_chrome_trace(tdoc)
+    fam = {m["name"]: m for m in doc["metrics"]}
+    total = sum(s["value"] for s in fam["traversal_evals_total"]["series"])
+    check(total == sum(evals), f"traversal_evals_total {total} != the "
+                               f"walks' evals {sum(evals)}")
+    check({s["labels"]["engine"]
+           for s in fam["traversal_evals_total"]["series"]} == {"cuda"},
+          "the walks are not labelled as the CUDA engine")
+    kernel = sum(s["value"]
+                 for s in fam["pallas_kernel_launches_total"]["series"])
+    check(kernel == launched, f"launch counter {kernel} != {launched} "
+                              "walk launches")
+    spans = [e["name"] for e in tdoc["traceEvents"]]
+    check(spans[0] == "traverse" and spans[-1] == "dbscan"
+          and spans.count("sweep") == res.n_sweeps - 1,
+          f"spans out of order: {spans}")
+    times = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off") * 4:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "on":
+            with obs.instrumented(sync=True):
+                repro_torch.dbscan(pts, eps, mp, query_plan=plan)
+        else:
+            repro_torch.dbscan(pts, eps, mp, query_plan=plan)
+        torch.cuda.synchronize()
+        times[mode].append((time.perf_counter() - t0) * 1e3)
+    say("obs", dataset=dset, n=n, spans=len(spans), metrics=len(fam),
+        evals_total=int(total), walk_launches=launched,
+        warm_ms_off=",".join(f"{t:.1f}" for t in times["off"]),
+        warm_ms_on=",".join(f"{t:.1f}" for t in times["on"]),
+        observer_ms=f"{np.median(times['on']) - np.median(times['off']):.1f}",
+        ok=True)
+
+
+def timed(phase: str, fn, *args):
+    """``fn(*args)``, with a line giving its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say("phase-time", name=phase, seconds=f"{time.perf_counter() - t0:.1f}")
+    return out
+
+
 def main() -> None:
-    profile_run = "--profile" in sys.argv[1:]
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="add a per-kernel device time breakdown")
+    args = ap.parse_args()
+    t_all = time.perf_counter()
+
     phase_environment()
-    walk_err = phase_walk_check()
-    tile_t = phase_tile_check()
+    walk_err = timed("walk-check", phase_walk_check)
+    tile_t = timed("tile-check", phase_tile_check)
+    knn_err = timed("knn-check", phase_knn_check)
 
     reset_counts()
-    runs = run_main_path()
+    runs = timed("main", run_main_path)
     seen = counts()
-    say("counts", **seen)
+    say("counts", path="dbscan", **seen)
     check_main_path(runs, seen)
-    main_err, walk_t = phase_main_walk_check(runs)
-    walk_t["max_abs_err"] = max(walk_err, main_err)
-    phase_walk_totals(runs)
-    phase_degenerate()
-    if profile_run:
+    main_err, walk_t = timed("main-walk-check", phase_main_walk_check, runs)
+    timed("walk-totals", phase_walk_totals, runs)
+
+    reset_counts()
+    nb = timed("neighbors", run_neighbors)
+    seen_nb = counts()
+    say("counts", path="neighbors", **seen_nb)
+    check_neighbors(nb, seen_nb)
+    timed("radius-visit", phase_radius_visit)
+    knn_t = timed("knn-time", phase_knn_timing, nb)
+    del nb
+    timed("obs", phase_obs, runs)
+    timed("degenerate", phase_degenerate)
+    if args.profile:
         phase_profile(runs)
+    say("total-time", seconds=f"{time.perf_counter() - t_all:.1f}")
+    walk_t["max_abs_err"] = max(walk_err, main_err)
+    knn_t["max_abs_err"] = max(knn_err, knn_t["max_abs_err"])
 
     csrc = "src/repro_torch/csrc"
     kernels = [
@@ -967,6 +1551,10 @@ def main() -> None:
              replaces="src/repro/kernels/pairwise.py:81",
              launches=seen["pairwise_minlabel"],
              **tile_t["pairwise_minlabel"]),
+        dict(name="knn", route="cuda", source=f"{csrc}/knn.cu",
+             replaces="none: no Pallas kernel (the reference's k-NN is an "
+                      "XLA while-loop, src/repro/core/traversal.py:663)",
+             launches=seen_nb["knn"], **knn_t),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,13 +12,19 @@ Public surface:
                             (tree walk or distance tiles);
   * :func:`plan`          — backend decision + cached index build, for
                             amortizing eps/min_pts parameter sweeps;
+  * :mod:`neighbors`      — fixed-radius counts, k-nearest-neighbor
+                            queries, and raw visitor walks over the shared
+                            tree index;
   * :class:`DBSCANResult` — the result record every backend returns.
 
 Entry points run on the current CUDA device unless the caller passes
 ``device="cpu"``, which runs the plain PyTorch versions of the kernels.
+``repro_torch.obs`` holds the metrics registry and span tracer the entry
+points report into once a collector is installed (``obs.instrumented()``).
 """
 from .core import DBSCANResult, dbscan, plan
+from .core import neighbors
 
-__all__ = ["DBSCANResult", "dbscan", "plan", "__version__"]
+__all__ = ["DBSCANResult", "dbscan", "plan", "neighbors", "__version__"]
 
 __version__ = "0.1.0"

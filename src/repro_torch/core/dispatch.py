@@ -27,6 +27,10 @@ only in their index; on the CPU each walk is the plain engine.
 executes a plan. Plans are memoized in a small LRU keyed by point-set
 content hash, device and parameters, with the eps-independent fdbscan
 index shared across all eps/min_pts entries of the same point set.
+
+Both are instrumented (:mod:`repro_torch.obs`) at the reference's points:
+``plan``/``build``/``dbscan`` spans and the plan, cache, index-build and
+run counters. With no collector installed each point is a ``None`` check.
 """
 from __future__ import annotations
 
@@ -36,6 +40,9 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 from . import fdbscan, grid, lbvh
 from .validate import check_points
@@ -175,10 +182,13 @@ def _fdbscan_plan(points, pkey: str, stats: dict) -> Plan:
     base_key = (pkey, "fdbscan-index")
     cached = _cache_get(base_key)
     if cached is None:
-        segs = grid.build_segments_fdbscan(points)
-        tree = _tree_of(segs)
-        cached = _cache_put(base_key,
-                            (segs, tree, _walk_index_of(segs, tree)))
+        with obs_trace.span("build", index="fdbscan") as sp:
+            segs = grid.build_segments_fdbscan(points)
+            tree = _tree_of(segs)
+            walk_index = _walk_index_of(segs, tree)
+            sp.watch(segs, tree, walk_index)
+        obs_metrics.inc("dispatch_index_builds_total", index="fdbscan")
+        cached = _cache_put(base_key, (segs, tree, walk_index))
     segs, tree, walk_index = cached
     return Plan("fdbscan", segs, tree, stats, points.device, walk_index)
 
@@ -191,6 +201,10 @@ def plan(points, eps: float, min_pts: int, algorithm: str = "auto",
     fraction decides densebox-vs-plain, and on a densebox decision the very
     same segments become the index. On a CUDA device an auto tree decision
     becomes the ``pallas-tree`` (walk kernel) backend.
+
+    Instrumented: with a collector installed, planning is bracketed by a
+    ``plan`` span (index builds get a nested ``build`` span) and reports
+    plan and cache-hit counters per backend.
 
     Args:
         points: (n, d) points (array-like or tensor; computed in float32).
@@ -207,6 +221,17 @@ def plan(points, eps: float, min_pts: int, algorithm: str = "auto",
         NotImplementedError: ``sharded``, ``stream`` or ``mesh=``, which
             later ROADMAP items bring.
     """
+    with obs_trace.span("plan", algorithm=algorithm) as sp:
+        p = _plan_impl(points, eps, min_pts, algorithm, mesh, device)
+        sp.watch(p.segs, p.tree)
+    obs_metrics.inc("dispatch_plans_total", backend=p.backend)
+    return p
+
+
+def _plan_impl(points, eps: float, min_pts: int, algorithm: str, mesh,
+               device) -> Plan:
+    """The planning decision body; :func:`plan` wraps it in the span and
+    counter instrumentation."""
     if algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}")
     if mesh is not None:
@@ -226,7 +251,9 @@ def plan(points, eps: float, min_pts: int, algorithm: str = "auto",
     key = (pkey, float(eps), int(min_pts), algorithm)
     hit = _cache_get(key)
     if hit is not None:
+        obs_metrics.inc("dispatch_plan_cache_hits_total")
         return hit
+    obs_metrics.inc("dispatch_plan_cache_misses_total")
 
     stats: dict = {"n": n, "d": d}
     if algorithm == "tiled" or (algorithm == "auto" and n <= TILED_MAX_POINTS):
@@ -249,7 +276,10 @@ def plan(points, eps: float, min_pts: int, algorithm: str = "auto",
             _fdbscan_plan(points, pkey, stats), algorithm))
 
     # eps-grid build: density probe and (potentially) the index itself
-    segs = grid.build_segments_densebox(points, eps, min_pts)
+    with obs_trace.span("build", index="densebox") as sp:
+        segs = grid.build_segments_densebox(points, eps, min_pts)
+        sp.watch(segs)
+    obs_metrics.inc("dispatch_index_builds_total", index="densebox")
     dense_frac = float(segs.dense_pt.float().mean())
     stats.update(dense_fraction=dense_frac, n_segments=segs.n_segments)
     if algorithm == "fdbscan-densebox" or dense_frac >= DENSE_FRACTION_MIN:
@@ -300,22 +330,28 @@ def dbscan(points, eps: float, min_pts: int, *, algorithm: str = "auto",
             combined with the tiled backend, which would ignore it.
         NotImplementedError: see :func:`plan`.
     """
-    check_points(points)
+    n = check_points(points).shape[0]
     if query_plan is not None:
         p = query_plan
     else:
         p = plan(points, eps, min_pts, algorithm, mesh, device=device)
-    if p.backend == "tiled":
-        if frontier is not True:
-            raise ValueError(
-                f"frontier={frontier!r} is incompatible with the tiled "
-                "backend: frontier restriction only applies to the "
-                "tree-sweep backends and would silently be ignored (drop "
-                "the kwarg, or pick algorithm='fdbscan'/'fdbscan-densebox')")
-        from repro_torch.kernels import ops
-        return ops.dbscan_tiled(as_points(points, p.device), eps, min_pts,
-                                star=star)
-    return fdbscan.cluster_from_index(p.segs, p.tree, eps, min_pts,
-                                      star=star, frontier=frontier,
-                                      backend=p.backend,
-                                      walk_index=p.walk_index)
+    if p.backend == "tiled" and frontier is not True:
+        raise ValueError(
+            f"frontier={frontier!r} is incompatible with the tiled "
+            "backend: frontier restriction only applies to the "
+            "tree-sweep backends and would silently be ignored (drop "
+            "the kwarg, or pick algorithm='fdbscan'/'fdbscan-densebox')")
+    with obs_trace.span("dbscan", backend=p.backend, n=n) as sp:
+        if p.backend == "tiled":
+            from repro_torch.kernels import ops
+            res = ops.dbscan_tiled(as_points(points, p.device), eps,
+                                   min_pts, star=star)
+        else:
+            res = fdbscan.cluster_from_index(p.segs, p.tree, eps, min_pts,
+                                             star=star, frontier=frontier,
+                                             backend=p.backend,
+                                             walk_index=p.walk_index)
+        sp.watch(res.labels, res.core_mask)
+    obs_metrics.inc("dbscan_runs_total", backend=p.backend)
+    obs_metrics.observe("dbscan_sweeps", res.n_sweeps, backend=p.backend)
+    return res

@@ -20,12 +20,21 @@ Two bulk phases over a segment BVH:
 Every walk goes through ``repro_torch.kernels.traverse.traverse``: the
 plain engine for an index on the CPU, the walk kernel for one on the card.
 Memory is O(n + m): neighbor lists are never materialized.
+
+Instrumented (:mod:`repro_torch.obs`) at the reference's points: the
+``traverse`` (first pass), ``sweep``, ``border`` and ``finalize`` spans and
+the walks' ``traversal_evals_total``/``traversal_iters_total`` counters,
+labelled by phase and engine (``"reference"`` for the plain engine,
+``"cuda"`` for the walk kernel).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 
 from . import grid, lbvh, traversal, unionfind
 
@@ -64,6 +73,24 @@ class DBSCANResult(NamedTuple):
 def _walk(*args, **kwargs):
     from repro_torch.kernels.traverse import traverse
     return traverse(*args, **kwargs)
+
+
+def _engine_name(segs: grid.Segments) -> str:
+    """Metric label for the walks' engine: the walk kernel on the card,
+    the plain engine (the reference's label for its own) elsewhere."""
+    return "cuda" if segs.pts.device.type == "cuda" else "reference"
+
+
+def _record_trace(phase: str, engine: str, tr) -> None:
+    """Fold a walk's work counters into the installed metrics registry.
+    Reading them syncs the device, so this is gated on an installed
+    registry — with none, the walk's result is never touched."""
+    if obs_metrics.active() is None:
+        return
+    obs_metrics.inc("traversal_evals_total", float(tr.evals.sum()),
+                    phase=phase, engine=engine)
+    obs_metrics.inc("traversal_iters_total", float(tr.iters.sum()),
+                    phase=phase, engine=engine)
 
 
 def _segment_max_bool(flags, segs: grid.Segments):
@@ -243,16 +270,20 @@ def _sweep_to_fixpoint(tree, segs, eps, core, labels0, *,
     sweeps = 0
     stats = {"frontier_per_sweep": [], "active_per_sweep": [],
              "iters_per_sweep": [], "evals_per_sweep": []}
+    engine = _engine_name(segs)
     while True:
-        tr = _walk(tree, segs,
-                   traversal.intersects(traversal.sphere(eps), ids=ids),
-                   traversal.MinLabelVisitor(labels, gather_mask,
-                                             mask_wide=gather_wide),
-                   node_mask=node_mask, walk_index=walk_index, **dual)
-        dual = {}                 # only the first sweep may be split
-        gather_wide = None
-        new, changed, changed_flags = _post_sweep(tree, segs, labels, core,
-                                                  ids, tr.acc)
+        with obs_trace.span("sweep", i=sweeps + 1, engine=engine) as sp:
+            tr = _walk(tree, segs,
+                       traversal.intersects(traversal.sphere(eps), ids=ids),
+                       traversal.MinLabelVisitor(labels, gather_mask,
+                                                 mask_wide=gather_wide),
+                       node_mask=node_mask, walk_index=walk_index, **dual)
+            dual = {}             # only the first sweep may be split
+            gather_wide = None
+            new, changed, changed_flags = _post_sweep(tree, segs, labels,
+                                                      core, ids, tr.acc)
+            sp.watch(new, changed)
+        _record_trace("sweep", engine, tr)
         sweeps += 1
         if collect_stats:
             stats["frontier_per_sweep"].append(int(gather_mask.sum()))
@@ -287,10 +318,11 @@ def _assign_borders(tree, segs, eps, core, core_labels, *,
     """
     ids = _compact_ids(~core)
     vals = torch.where(core, core_labels, INT_MAX)
-    gathered, _ = _gather_minlabel(tree, segs, eps, vals, core, ids,
-                                   node_mask=_frontier_node_mask(tree, segs,
-                                                                 core),
-                                   walk_index=walk_index)
+    gathered, tr = _gather_minlabel(tree, segs, eps, vals, core, ids,
+                                    node_mask=_frontier_node_mask(tree, segs,
+                                                                  core),
+                                    walk_index=walk_index)
+    _record_trace("border", _engine_name(segs), tr)
     labels = torch.where(core, core_labels, gathered)
     return torch.where(labels == INT_MAX, -1, labels)
 
@@ -350,8 +382,12 @@ def cluster_from_index(segs: grid.Segments, tree, eps: float, min_pts: int,
     if walk_index is None and dev.type == "cuda":
         from repro_torch.kernels.walkpack import pack_index
         walk_index = pack_index(tree, segs)
-    core, labels0, vals0, absorbed, first = _fused_first_pass(
-        tree, segs, eps, min_pts, walk_index=walk_index)
+    engine = _engine_name(segs)
+    with obs_trace.span("traverse", phase="first_pass", engine=engine) as sp:
+        core, labels0, vals0, absorbed, first = _fused_first_pass(
+            tree, segs, eps, min_pts, walk_index=walk_index)
+        sp.watch(core, labels0)
+    _record_trace("first_pass", engine, first)
     core_labels, loop_sweeps, sweep_stats = _sweep_to_fixpoint(
         tree, segs, eps, core, labels0, frontier=frontier,
         collect_stats=with_stats, fused_init=(vals0, absorbed),
@@ -362,13 +398,18 @@ def cluster_from_index(segs: grid.Segments, tree, eps: float, min_pts: int,
     if star:
         labels_sorted = torch.where(core, core_labels, -1)
     else:
-        labels_sorted = _assign_borders(tree, segs, eps, core, core_labels,
-                                        walk_index=walk_index)
+        with obs_trace.span("border", engine=engine) as sp:
+            labels_sorted = _assign_borders(tree, segs, eps, core,
+                                            core_labels,
+                                            walk_index=walk_index)
+            sp.watch(labels_sorted)
         n_traversals += 1
 
-    labels, n_clusters = _finalize(labels_sorted, segs.order, n)
-    core_mask = torch.zeros(n, dtype=torch.bool, device=dev)
-    core_mask[segs.order.long()] = core
+    with obs_trace.span("finalize") as sp:
+        labels, n_clusters = _finalize(labels_sorted, segs.order, n)
+        core_mask = torch.zeros(n, dtype=torch.bool, device=dev)
+        core_mask[segs.order.long()] = core
+        sp.watch(labels, core_mask)
     res = DBSCANResult(labels=labels, core_mask=core_mask,
                        n_clusters=n_clusters, n_sweeps=n_sweeps,
                        n_traversals=n_traversals, backend=backend)

@@ -5,10 +5,12 @@ The engine the paper's framework (ArborX) exposes, over tensors:
     ``traverse(tree, segs, predicates, callback, carry) -> Trace``
 
 where a **predicate batch** describes the queries and their geometry —
-``intersects(sphere(eps))`` for fixed-radius search — and a **callback** is a
+``intersects(sphere(eps))`` for fixed-radius search, ``nearest(k)`` for
+distance-bounded k-nearest-neighbor search — and a **callback** is a
 visitor consuming matched neighbors *on the fly* over an accumulator
-(the ``carry``); neighbor lists are never materialized (the paper's
-O(n)-memory claim).
+(the ``carry``: a tensor, or a tuple or NamedTuple of tensors, each with
+the lane count as its leading dim); neighbor lists are never materialized
+(the paper's O(n)-memory claim).
 
 The DBSCAN epilogues are visitor instances over this engine:
 
@@ -16,13 +18,16 @@ The DBSCAN epilogues are visitor instances over this engine:
   * :class:`MinLabelVisitor`      — min gathered label over masked
                                     neighbors (hook sweeps, border gather);
   * :class:`CountMinLabelVisitor` — the fused first pass: count *and*
-                                    min-label candidate in one walk.
+                                    min-label candidate in one walk;
+  * :class:`KNNVisitor`           — the k-best (d2, id) list behind
+                                    ``repro_torch.neighbors.knn``.
 
 This module is the *plain* engine: the walk written out over a lane vector
 (one entry per query), every step a handful of tensor ops over all lanes.
 It runs on any device and is the reference for the hand-written walk kernel
-(``repro_torch.kernels.traverse``), which performs the same steps one thread
-per lane:
+(``repro_torch.kernels.traverse``) and for the k-NN walk kernel
+(``repro_torch.kernels.knn``), which perform the same steps one thread per
+lane:
 
   * per-query traversal stack  ->  precomputed ropes (``Tree.miss``), O(1)
     state per lane;
@@ -101,6 +106,27 @@ def intersects(geometry, ids=None, pts=None) -> Intersects:
     return Intersects(geometry, ids, pts)
 
 
+class Nearest(NamedTuple):
+    """A batch of k-nearest-neighbor queries (ArborX's ``nearest(k)``).
+
+    The walk is *distance-bounded*: a lane's box tests and member tests
+    prune against ``min(r^2, worst-so-far)``, where worst-so-far is the
+    callback's current k-th best squared distance (its ``worst_d2`` hook),
+    so the search ball shrinks as better neighbors are found. ``r``
+    optionally caps the search radius (``None``: unbounded); ``ids`` and
+    ``pts`` work as in :class:`Intersects`.
+    """
+    k: int
+    r: Any = None
+    ids: Any = None
+    pts: Any = None
+
+
+def nearest(k: int, r=None, ids=None, pts=None) -> Nearest:
+    """k-NN predicate batch: ``nearest(k)``, optionally radius-capped."""
+    return Nearest(int(k), r, ids, pts)
+
+
 # --------------------------------------------------------------------- #
 # callback protocol                                                     #
 # --------------------------------------------------------------------- #
@@ -134,10 +160,13 @@ class AccHits(NamedTuple):
 class Trace(NamedTuple):
     """Traversal outputs: the final callback carry + work counters.
 
+    carry: the callback's accumulator, one entry per lane.
     evals: member distance evaluations per lane — the paper's work metric.
     iters: loop trips per lane (after unrolling).
+
+    ``acc``/``hits`` forward into an :class:`AccHits` carry.
     """
-    carry: AccHits
+    carry: Any
     evals: torch.Tensor
     iters: torch.Tensor
 
@@ -260,6 +289,81 @@ class CountMinLabelVisitor(MinLabelVisitor):
         return matched & seg_dense & (ctx.dense | (carry.hits >= self.cap))
 
 
+class KNNCarry(NamedTuple):
+    """Per-lane k-best lists, each ascending by (d2, id); empty slots are
+    (+inf, -1)."""
+    d2: torch.Tensor    # (L, k) float32
+    ids: torch.Tensor   # (L, k) int32
+
+
+class KNNVisitor(Visitor):
+    """Keeps the k nearest neighbors per lane under a shrinking distance
+    bound (pairs with the :class:`Nearest` predicate).
+
+    Selection is lexicographic on (d2, id), exactly a stable argsort of the
+    brute-force distance row: ties at the k-th distance go to the smaller
+    id, and tie *sets* match brute force. ``id_map`` remaps the engine's
+    sorted point index before the comparison and in the carry (pass
+    ``segs.order`` to select and record by original index); ``None`` keeps
+    sorted-space ids. ``worst_d2`` feeds the engine's per-lane bound. The
+    query point itself is a neighbor at d2 = 0."""
+
+    def __init__(self, k: int, id_map=None):
+        self.k = int(k)
+        self.id_map = id_map
+
+    def init_carry(self, ids, external, segs):
+        shape = (ids.shape[0], self.k)
+        return KNNCarry(
+            d2=torch.full(shape, float("inf"), dtype=segs.pts.dtype,
+                          device=ids.device),
+            ids=torch.full(shape, -1, dtype=torch.int32, device=ids.device))
+
+    def worst_d2(self, carry):
+        return carry.d2[:, self.k - 1]
+
+    def visit(self, carry, j, d2, hit, ctx):
+        dd, ii = carry.d2, carry.ids
+        jid = j if self.id_map is None else self.id_map[j].to(torch.int32)
+        # slots strictly better than the candidate under (d2, id) order
+        c2, cid = d2[:, None], jid[:, None]
+        better = (dd < c2) | ((dd == c2) & (ii < cid))
+        pos = better.sum(1, dtype=torch.int32)[:, None]
+        ar = torch.arange(self.k, dtype=torch.int32, device=dd.device)
+        d_sh, i_sh = torch.roll(dd, 1, 1), torch.roll(ii, 1, 1)
+        nd = torch.where(ar < pos, dd, torch.where(ar == pos, c2, d_sh))
+        ni = torch.where(ar < pos, ii, torch.where(ar == pos, cid, i_sh))
+        take = hit & (pos[:, 0] < self.k)
+        return KNNCarry(d2=torch.where(take[:, None], nd, dd),
+                        ids=torch.where(take[:, None], ni, ii)), take
+
+
+# --------------------------------------------------------------------- #
+# carries: a tensor or a (named) tuple of tensors                       #
+# --------------------------------------------------------------------- #
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a carry (a tensor, or a tuple, list or
+    NamedTuple of carries, whose type is kept), with ``rest`` carries of
+    the same structure passed beside each leaf."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, (tuple, list)):
+        out = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
+    raise TypeError(f"a carry is a tensor or a (named) tuple of carries; "
+                    f"got {type(tree).__name__}")
+
+
+def lane_where(mask, a, b):
+    """``torch.where`` of two carries on a per-lane mask, broadcast over
+    each leaf's trailing dims."""
+    return tree_map(
+        lambda x, y: torch.where(
+            mask.reshape(mask.shape + (1,) * (x.dim() - 1)), x, y), a, b)
+
+
 # --------------------------------------------------------------------- #
 # the engine                                                            #
 # --------------------------------------------------------------------- #
@@ -275,15 +379,21 @@ def lane_arrays(segs: Segments, predicates, use_range_mask: bool = False):
     """Resolve a predicate batch into per-lane query arrays.
 
     Returns ``(query_ids, q_arr, self_arr, dense_arr, rank_arr, external,
-    r2)``: the lane id vector (-1 marks inert padding), the per-lane query
-    coordinates, the engine context source arrays, whether the batch is
-    external, and the squared search radius. Shared by the plain engine and
-    the walk kernel's wrapper so both resolve predicates identically.
+    r2, is_nearest)``: the lane id vector (-1 marks inert padding), the
+    per-lane query coordinates, the engine context source arrays, whether
+    the batch is external, the squared (initial) search radius (``inf``
+    for an uncapped :class:`Nearest` batch), and whether the batch is
+    distance-bounded k-NN. Shared by the plain engine and the kernels'
+    wrappers so all resolve predicates identically.
     """
     n = segs.n_points
     pts = segs.pts
     dev = pts.device
-    r2 = radius2(predicates.geometry.r)
+    is_nearest = isinstance(predicates, Nearest)
+    if is_nearest:
+        r2 = float("inf") if predicates.r is None else radius2(predicates.r)
+    else:
+        r2 = radius2(predicates.geometry.r)
     query_ids, query_pts = predicates.ids, predicates.pts
     external = query_pts is not None
     if external:
@@ -305,7 +415,8 @@ def lane_arrays(segs: Segments, predicates, use_range_mask: bool = False):
         self_arr = query_ids
         dense_arr = segs.dense_pt[safe]
         rank_arr = segs.seg_of_point[safe]
-    return (query_ids, q_arr, self_arr, dense_arr, rank_arr, external, r2)
+    return (query_ids, q_arr, self_arr, dense_arr, rank_arr, external, r2,
+            is_nearest)
 
 
 def _tree_left(tree: Tree, node):
@@ -313,20 +424,27 @@ def _tree_left(tree: Tree, node):
 
 
 def make_step(tree: Tree, segs: Segments, callback, *, q, ctx: QueryCtx,
-              lane_wide, r2: float, node_mask=None, node_mask_wide=None,
+              lane_wide, r2: float, is_nearest: bool = False,
+              node_mask=None, node_mask_wide=None,
               use_range_mask: bool = False):
     """Build the dead-guarded one-unit-of-work step for the rope walk.
 
     ``step`` maps ``(node, ptr, carry, evals) -> (node, ptr, carry,
     evals)`` over lane vectors, every state update masked by the lane's
     liveness (the dead-guarding that makes unrolling exact); ``live_of(node,
-    carry)`` is the lane's loop condition. The walk kernel
-    (``csrc/walk.cu``) performs this same step per thread.
+    carry)`` is the lane's loop condition. The walk kernels
+    (``csrc/walk.cu``, ``csrc/knn.cu``) perform this same step per thread.
     """
     m = segs.n_segments
     leaf_off = m - 1
     pts = segs.pts
     dual_nodes = node_mask_wide is not None
+
+    def bound2(carry):
+        """Per-lane squared search radius at this instant."""
+        if is_nearest:
+            return torch.clamp_max(callback.worst_d2(carry), r2)
+        return r2
 
     def live_of(node, carry):
         return (node >= 0) & ~callback.done(carry, ctx)
@@ -337,12 +455,13 @@ def make_step(tree: Tree, segs: Segments, callback, *, q, ctx: QueryCtx,
         live = live_of(node, carry)
         node_safe = torch.clamp_min(node, 0)
         is_member = live & (ptr >= 0)
+        bnd = bound2(carry)
 
         # ---- member step: one distance test against sorted point ptr --
         j = torch.where(is_member, ptr, 0)
         diff = q - pts[j]
         d2 = sum_sq(diff)
-        hit = is_member & (d2 <= r2)
+        hit = is_member & (d2 <= bnd)
         seg_id = torch.where(node_safe >= leaf_off, node_safe - leaf_off, 0)
         carry_m, matched = callback.visit(carry, j, d2, hit, ctx)
         stop_seg = callback.segment_done(carry_m, matched,
@@ -355,7 +474,7 @@ def make_step(tree: Tree, segs: Segments, callback, *, q, ctx: QueryCtx,
         is_leaf = node_safe >= leaf_off
         seg = torch.where(is_leaf, node_safe - leaf_off, 0)
         bd2 = box_dist2(q, tree.box_lo[node_safe], tree.box_hi[node_safe])
-        overlap = bd2 <= r2
+        overlap = bd2 <= bnd
         if use_range_mask:
             overlap = overlap & (tree.range_r[node_safe] >= ctx.rank)
         if node_mask is not None:
@@ -381,14 +500,12 @@ def make_step(tree: Tree, segs: Segments, callback, *, q, ctx: QueryCtx,
 
         node_new = torch.where(is_member, member_next_node, node_next_node)
         ptr_new = torch.where(is_member, member_next_ptr, node_next_ptr)
-        carry_new = AccHits(*(torch.where(is_member, cm, c)
-                              for cm, c in zip(carry_m, carry)))
+        carry_new = lane_where(is_member, carry_m, carry)
         evals_new = evals + is_member.to(torch.int32)
         # freeze finished lanes so unrolled sub-steps are no-ops
         return (torch.where(live, node_new, node),
                 torch.where(live, ptr_new, ptr),
-                AccHits(*(torch.where(live, cn, c)
-                          for cn, c in zip(carry_new, carry))),
+                lane_where(live, carry_new, carry),
                 torch.where(live, evals_new, evals))
 
     return step, live_of
@@ -405,12 +522,16 @@ def traverse(tree: Tree, segs: Segments, predicates, callback, carry=None,
     phases call; it routes CPU tensors here and CUDA tensors to the walk
     kernel.
 
-    predicates: an :func:`intersects` batch. Its ``ids``/``pts`` select
-        resident vs external queries and mark inert (-1) padding lanes.
+    predicates: an :func:`intersects` or :func:`nearest` batch. Its
+        ``ids``/``pts`` select resident vs external queries and mark inert
+        (-1) padding lanes.
     callback: a :class:`Visitor`; its hooks consume matches on the fly.
-    carry: initial :class:`AccHits` (leading dim = lane count). ``None``
-        asks the callback (``init_carry``); passing a previous walk's carry
-        chains one query batch across several trees.
+        With a :func:`nearest` batch it must have ``worst_d2(carry)``.
+    carry: the initial accumulator: a tensor or a (named) tuple of tensors,
+        each with the lane count as its leading dim (masks broadcast over
+        trailing dims). ``None`` asks the callback (``init_carry``);
+        passing a previous walk's carry chains one query batch across
+        several trees.
     node_mask: optional (2m-1,) bool per-node flag; subtrees whose flag is
         False are pruned as if their boxes missed (frontier sweeps).
     node_mask_wide / wide_lanes: optional second node mask selected per
@@ -420,8 +541,8 @@ def traverse(tree: Tree, segs: Segments, predicates, callback, carry=None,
     unroll: work units per loop trip (``iters`` counts trips).
     """
     traverse.runs += 1
-    (query_ids, q_arr, self_arr, dense_arr, rank_arr, external,
-     r2) = lane_arrays(segs, predicates, use_range_mask)
+    (query_ids, q_arr, self_arr, dense_arr, rank_arr, external, r2,
+     is_nearest) = lane_arrays(segs, predicates, use_range_mask)
     if carry is None:
         carry = callback.init_carry(query_ids, external, segs)
     if wide_lanes is None:
@@ -430,6 +551,7 @@ def traverse(tree: Tree, segs: Segments, predicates, callback, carry=None,
                    wide=wide_lanes)
     step, live_of = make_step(tree, segs, callback, q=q_arr, ctx=ctx,
                               lane_wide=wide_lanes, r2=r2,
+                              is_nearest=is_nearest,
                               node_mask=node_mask,
                               node_mask_wide=node_mask_wide,
                               use_range_mask=use_range_mask)
@@ -439,7 +561,6 @@ def traverse(tree: Tree, segs: Segments, predicates, callback, carry=None,
     ptr = torch.full_like(node, -1)
     evals = torch.zeros_like(node)
     iters = torch.zeros_like(node)
-    carry = AccHits(*carry)
     while True:
         trip_live = live_of(node, carry)
         if not bool(trip_live.any()):

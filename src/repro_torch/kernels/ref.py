@@ -46,7 +46,7 @@ def _sum_unfused(x):
     return out
 
 
-def tile_sum_sq(x):
+def tile_sum_sq(x, fma: bool = True):
     """Sum of squares over the last axis, rounded as the reference's tile
     kernels round ``jnp.sum(q * q, -1)`` (XLA's CPU compiler, jax 0.9,
     x86-64 with AVX-512; measured by ``tools/tile_rounding.py`` inside a
@@ -61,9 +61,14 @@ def tile_sum_sq(x):
     * d >= 33: the compiler splits the reduction into windows of 32
       (:func:`norm_windows`); each window is summed as above, unfused, and
       the window sums are added in order.
+
+    ``fma=False`` is the same window rule with nothing fused at any d: how
+    the reference's *eager* ``jnp.sum((q - p) ** 2, -1)`` rounds
+    (``neighbors.neighbor_count``'s brute path; measured on the host, jax
+    0.9.0, at d = 1, 4, 5, 8, 17, 32, 33, 48, 64, 65 and 100).
     """
     d = x.shape[-1]
-    if d <= 4 or 9 <= d <= WINDOW:
+    if fma and (d <= 4 or 9 <= d <= WINDOW):
         return sum_sq(x)
     parts = [_sum_unfused(x[..., lo:hi]) for lo, hi in norm_windows(d)]
     out = parts[0]

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch import _build
 from repro_torch.core import traversal
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.core.grid import Segments
 from repro_torch.core.lbvh import Tree
 from .walkpack import RECORD_WORDS, WalkIndex
@@ -40,6 +41,8 @@ BLOCK = 128
 #: Visitor types whose hooks the kernel inlines, by kernel kind code.
 KINDS = {traversal.CountVisitor: 0, traversal.MinLabelVisitor: 1,
          traversal.CountMinLabelVisitor: 2}
+#: the kinds' names in the launch counters (the reference's labels)
+KIND_NAMES = ("count", "minlabel", "countminlabel")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_I] * 10 + [_F, _I] + [_P] * 24
@@ -178,6 +181,11 @@ def walk(kind: int, *, q, qid, self_id, dense, rank, wide, acc0, hits0,
     _build.check(err, "walk")
     walk.launches += 1
     walk.last_grid = grid.value
+    if obs_metrics.active() is not None:
+        # the reference's launch counters, under its names
+        obs_metrics.inc("pallas_kernel_launches_total", kind=KIND_NAMES[kind])
+        obs_metrics.inc("pallas_kernel_lanes_total", float(L),
+                        kind=KIND_NAMES[kind])
     return acc, hits, evals, iters
 
 
@@ -227,8 +235,8 @@ def traverse(tree: Tree, segs: Segments, predicates, callback, carry=None,
     if (walk_index.n_segments != segs.n_segments
             or walk_index.pts.shape[0] != segs.n_points):
         raise ValueError("walk: walk_index was packed from another index")
-    (query_ids, q_arr, self_arr, dense_arr, rank_arr, external,
-     r2) = traversal.lane_arrays(segs, predicates, use_range_mask)
+    (query_ids, q_arr, self_arr, dense_arr, rank_arr, external, r2,
+     _) = traversal.lane_arrays(segs, predicates, use_range_mask)
     if carry is None:
         carry = callback.init_carry(query_ids, external, segs)
     if wide_lanes is None:

@@ -12,6 +12,11 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs in several worker processes that
+# share the host's cores, and a torch thread pool in each oversubscribes
+# them (the whole suite, six workers on 8 cores: 1430 s with them, 917 s
+# without).
+torch.set_num_threads(1)
 
 import repro  # noqa: E402
 from repro.core import dispatch as jdispatch  # noqa: E402

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports JAX or the reference package, importing and
-running the port loads neither, and without a CUDA device the entry points
+running the port (clustering, neighbor queries, under the port's own
+collectors) loads neither, and without a CUDA device the entry points
 refuse to run unless the caller asks for the CPU."""
 import ast
 import os
@@ -11,6 +12,11 @@ import textwrap
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: the suite runs in several worker processes that
+# share the host's cores, and a torch thread pool in each oversubscribes
+# them (the whole suite, six workers on 8 cores: 1430 s with them, 917 s
+# without).
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
@@ -50,12 +56,20 @@ def test_running_the_port_loads_neither_jax_nor_the_reference():
         import sys
         import numpy as np
         import repro_torch
+        from repro_torch import obs
         from repro_torch.data import pointclouds
         pts = pointclouds.load("blobs", 300)
-        for algorithm in ("auto", "fdbscan-densebox"):
-            res = repro_torch.dbscan(pts, 0.05, 5, algorithm=algorithm,
-                                     device="cpu")
-            assert res.n_clusters > 0
+        with obs.instrumented() as (reg, tracer):
+            for algorithm in ("auto", "fdbscan-densebox"):
+                res = repro_torch.dbscan(pts, 0.05, 5, algorithm=algorithm,
+                                         device="cpu")
+                assert res.n_clusters > 0
+            knn = repro_torch.neighbors.knn(pts, 3, device="cpu")
+            counts = repro_torch.neighbors.neighbor_count(pts, 0.05, cap=5,
+                                                          device="cpu")
+        assert knn.indices.shape == (300, 3) and counts.shape == (300,)
+        assert reg.get("dbscan_runs_total", backend="fdbscan-densebox")
+        assert [e["name"] for e in tracer.events][-1] == "plan"
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not bad, bad
@@ -80,4 +94,8 @@ def test_no_cuda_and_no_device_raises(monkeypatch):
         dispatch.plan(pts, 0.1, 3)
     with pytest.raises(RuntimeError, match="CUDA"):
         repro_torch.dbscan(pts, 0.1, 3, algorithm="fdbscan")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.neighbors.knn(pts, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.neighbors.neighbor_count(pts, 0.1)
     assert repro_torch.dbscan(pts, 0.1, 3, device="cpu").labels.shape == (50,)
