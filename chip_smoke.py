@@ -70,8 +70,10 @@ WALK_CHECK = [("hacc_like", 262_144, 0.0119, 5),
 # every specialization of the walk on smaller indexes of both scenarios
 WALK_SPEC = [("hacc_like", 16_384, 0.03, 5),
              ("portotaxi_like", 16_384, 0.01, 50)]
-# member tests the walk kernel loads together (csrc/walk.cu: kBatch)
+# member tests the walk kernel loads together (csrc/walk.cu: kBatch), and
+# the k-NN kernel (csrc/knn.cu: kBatch)
 WALK_BATCH = 4
+KNN_BATCH = 4
 TILE_SHAPES = [(1000, 1000), (130, 257), (7, 5), (64, 20000)]
 # widths of the tile checks: the compiled bodies (d <= 4), the unfused
 # norm (5, 8), 16 and 17 around the old limit of 16, and the windowed norm
@@ -176,6 +178,51 @@ def device_ms(fn, reps: int, name: str | None = None,
                        f"{name or ''} in {reps} calls, not {reps * per_call}")
 
 
+class _TimedLib:
+    """A kernel library whose launch functions record a CUDA event on the
+    current stream (the launches' stream) just before and just after each
+    call."""
+
+    def __init__(self, lib, marks: list):
+        self._lib, self._marks = lib, marks
+
+    def __getattr__(self, name):
+        launch = getattr(self._lib, name)
+
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            err = launch(*args)
+            end.record()
+            self._marks.append((start, end))
+            return err
+        return call
+
+
+def launch_ms(module, fn, reps: int) -> tuple[float, int]:
+    """Device milliseconds of the kernel launches ``fn()`` makes through
+    ``module``'s kernel library (``module._lib()``), summed and averaged
+    over ``reps`` runs after one warm-up, and the launches timed: CUDA
+    events around each launch call, so the time is the launch's work on
+    the stream (the kernel, and the counter's memset where it has one).
+    torch.profiler lost the record of single launches in sessions late in
+    a full run (one of the 7 hacc walks, in three sessions in a row), so
+    the launches of the port's own kernels are timed so."""
+    fn()
+    torch.cuda.synchronize()
+    load, marks = module._lib, []
+    lib = load()
+    module._lib = lambda: _TimedLib(lib, marks)
+    try:
+        for _ in range(reps):
+            fn()
+    finally:
+        module._lib = load
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in marks) / reps, len(marks)
+
+
 def reset_counts() -> None:
     kt.walk.launches = 0
     kknn.walk.launches = 0
@@ -270,37 +317,62 @@ def phase_environment() -> None:
     say("build", seconds=f"{time.perf_counter() - t0:.1f}",
         **{name: f"{v['seconds']:.1f}s" for name, v in info.items()})
     for name, v in info.items():
-        regs = ptxas_registers(v["log"])
+        report = ptxas_report(v["log"])
+        regs = {e: r["registers"] for e, r in report.items()}
         spills = sum(" 0 bytes spill stores" not in line
                      for line in v["log"].splitlines() if "spill" in line)
         say(f"ptxas:{name}", kernels=len(regs),
             max_registers=max(regs.values()), with_spills=spills)
         say(f"ptxas-registers:{name}", **regs)
+        if name == "knn":
+            # each k-NN body: registers, stack frame and spill stores; a
+            # register-list body with a stack frame or spills has moved its
+            # list to local memory, the cost the design removes
+            say("ptxas-knn", **{e: f"{r['registers']}regs/{r['stack']}B"
+                                   f"stack/{r['spill_stores']}Bspill"
+                                for e, r in report.items()})
+            check(len(report) == 8, f"knn: {len(report)} bodies compiled, "
+                                    "not 8 (d = 2, 3 x capacity 4, 8, 16, "
+                                    "device memory)")
+            for e, r in report.items():
+                check(e.endswith("_mem") or (r["stack"] == 0
+                                            and r["spill_stores"] == 0),
+                      f"knn body {e}: {r['stack']} bytes of stack frame, "
+                      f"{r['spill_stores']} bytes of spill stores")
 
 
-def ptxas_registers(log: str) -> dict:
-    """Registers per compiled kernel from ``-Xptxas -v`` output, keyed by
-    the kernel's template arguments as they appear in its mangled name."""
+def ptxas_report(log: str) -> dict:
+    """Registers, stack frame bytes and spill store bytes per compiled
+    kernel from ``-Xptxas -v`` output, keyed by the kernel's template
+    arguments as they appear in its mangled name."""
     out, entry = {}, "?"
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
             walk = re.search(r"walk_kernelILi(\d)E([if])Li(\d)E", entry)
             tile = re.search(r"\d([a-z]+_kernel)ILi(\d)E", entry)
-            knn = re.search(r"knn_kernelILi(\d)E", entry)
+            knn = re.search(r"knn_kernelILi(\d)ELi(\d+)E", entry)
             plain = re.search(r"\d([a-z][a-z_]*_kernel)", entry)
             if walk:        # walk_kernel<KIND, V, D>
                 entry = (f"kind{walk[1]}_{'f32' if walk[2] == 'f' else 'i32'}"
                          f"_d{walk[3]}")
-            elif knn:       # knn_kernel<D>
-                entry = f"knn_d{knn[1]}"
+            elif knn:       # knn_kernel<D, CAP>; CAP 0: list in memory
+                entry = (f"knn_d{knn[1]}_"
+                         f"{'mem' if knn[2] == '0' else 'cap' + knn[2]}")
             elif tile:      # count_kernel<D>, minlabel_kernel<D>; 0: any d
                 entry = f"{tile[1]}_d{tile[2] if tile[2] != '0' else 'any'}"
             elif plain:
                 entry = plain[1]
+            out[entry] = dict(registers=0, stack=0, spill_stores=0)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores", line)
+        if frame and entry in out:
+            out[entry]["stack"] = max(out[entry]["stack"], int(frame[1]))
+            out[entry]["spill_stores"] = max(out[entry]["spill_stores"],
+                                             int(frame[2]))
         for w, nxt in zip(line.split(), line.split()[1:]):
-            if nxt == "registers,":
-                out[entry] = int(w)
+            if nxt == "registers," and entry in out:
+                out[entry]["registers"] = int(w)
     return out
 
 
@@ -604,16 +676,17 @@ def phase_main_walk_check(runs) -> tuple[float, dict]:
 
 def phase_walk_totals(runs) -> None:
     """Device time of every walk-kernel launch of one more warm run of
-    each full-size scenario (torch.profiler), summed."""
+    each full-size scenario, summed (:func:`launch_ms`)."""
     for dset, n, eps, mp, pts, plan, _, _ in runs:
         if plan is None:
             continue
         before = kt.walk.launches
         repro_torch.dbscan(pts, eps, mp, query_plan=plan)
         launches = kt.walk.launches - before
-        ms = device_ms(lambda: repro_torch.dbscan(pts, eps, mp,
-                                                  query_plan=plan),
-                       1, "walk_kernel", per_call=launches)
+        ms, timed = launch_ms(kt, lambda: repro_torch.dbscan(
+            pts, eps, mp, query_plan=plan), 1)
+        check(timed == launches, f"walk totals: {timed} of {launches} "
+                                 "launches timed")
         say("walk-total", dataset=dset, n=n, launches=launches,
             walk_device_ms=f"{ms:.4f}")
 
@@ -1104,16 +1177,83 @@ def _check_knn(name, segs, tree, index, pred, unrolls=(1,)):
     return err, plain_s, first
 
 
+def _knn_refill_grant(dset, segs, tree, index, r, g) -> float:
+    """For a register-list body and the device-memory body: as many
+    resident lanes (capped at r) as the launch keeps resident threads,
+    plus 3, so that full warps refill and the last grant is partly
+    filled; held against the plain engine at unroll 1."""
+    n, err = segs.n_points, 0.0
+    for kk in (kknn.CAPACITIES[-1], kknn.CAPACITIES[-1] + 1):
+        probe = torch.zeros(1 << 22, dtype=torch.int32, device=DEV)
+        kknn.traverse(tree, segs, traversal.nearest(kk, r, ids=probe),
+                      walk_index=index)
+        sched = dict(kknn.walk.last_schedule)
+        check(sched["warp_lanes"] == 32, f"knn: {1 << 22} lanes ran with "
+                                         f"partial warps: {sched}")
+        resident = sched["grid"] * sched["block"]
+        ids = torch.randint(0, n, (resident + 3,), generator=g).sort().values
+        pred = traversal.nearest(kk, r, ids=ids.to(DEV, torch.int32))
+        e, plain_s, k = _check_knn(f"{dset} {resident + 3} lanes k={kk} r",
+                                   segs, tree, index, pred)
+        check(kknn.walk.last_schedule == sched,
+              f"knn: {resident + 3} lanes took another schedule: "
+              f"{kknn.walk.last_schedule}, not {sched}")
+        err = max(err, e)
+        say("knn-check", dataset=dset, n=n, case=repr(
+            f"resident threads + 3 = {resident + 3} lanes k={kk} r"),
+            unrolls=1, **sched, evals=int(k.evals.sum()),
+            iters_max=int(k.iters.max()), plain_s=f"{plain_s:.1f}",
+            max_abs_err=e)
+    return err
+
+
+def _knn_segments(dset: str, n: int, r: float) -> float:
+    """The k-NN kernel's batched member tests: a densebox index of the
+    same points (segments of several members), k = 16 (register list)
+    resident and unbounded at unroll 1 and 4, k = 17 (list in memory)
+    external and capped at r, against the plain engine."""
+    pts = torch.from_numpy(pointclouds.load(dset, n)).to(DEV)
+    segs = grid.build_segments_densebox(pts, r, 5)
+    tree = lbvh.build_tree(segs.codes, segs.prim_lo, segs.prim_hi)
+    index = walkpack.pack_index(tree, segs)
+    sizes = segs.seg_end - segs.seg_start
+    check(int(sizes.max()) > KNN_BATCH,
+          f"the densebox index of {dset} has no segment above a batch")
+    g = torch.Generator(device="cpu").manual_seed(5)
+    ids = torch.randint(0, n, (1024,), generator=g).sort().values.to(
+        DEV, torch.int32)
+    ext = torch.rand(1024, pts.shape[1], generator=g).to(DEV)
+    err = 0.0
+    for name, pred, unrolls in (
+            ("1024 lanes k=16", traversal.nearest(16, ids=ids), (1, 4)),
+            ("1024 external k=17 r", traversal.nearest(17, r, pts=ext),
+             (1,))):
+        e, plain_s, k = _check_knn(f"{dset} densebox {name}", segs, tree,
+                                   index, pred, unrolls)
+        err = max(err, e)
+        say("knn-check", dataset=dset, n=n, index="densebox",
+            segments=segs.n_segments, max_segment=int(sizes.max()),
+            case=repr(name), unrolls=",".join(map(str, unrolls)),
+            evals=int(k.evals.sum()), iters_max=int(k.iters.max()),
+            plain_s=f"{plain_s:.1f}", max_abs_err=e)
+    return err
+
+
 def phase_knn_check() -> float:
     """The k-NN walk kernel against the plain engine on the card, exact
     (ids and d2 bit for bit, evals, iters at unroll 1 and 4), on fdbscan
     indexes of both scenarios: k = 1, 2, 16 and 100, each with and without
     a radius cap; 1, 31, 33 and 4,099 resident lanes, inert lanes and
-    4,096 external lanes; then on the 7 x 7 lattice of
-    tests/test_neighbors.py (exact ties) against the plain engine and the
-    numpy oracle. The main path's own full-size results are held against
-    the plain engine (external lanes, capped) in :func:`phase_knn_timing`
-    and against the numpy oracle in :func:`check_neighbors`."""
+    4,096 external lanes; each list body at its capacity and one above
+    (k = 4/5, 8/9, 16/17) on resident lanes with inert ones among them and
+    on external lanes; resident threads + 3 lanes (a partly filled refill
+    grant) for the last register body and the memory body; a densebox
+    index of the same points (batched member tests); then on the 7 x 7
+    lattice of tests/test_neighbors.py (exact ties) against the plain
+    engine and the numpy oracle. The main path's own full-size results
+    are held against the plain engine (external lanes, capped) in
+    :func:`phase_knn_timing` and against the numpy oracle in
+    :func:`check_neighbors`."""
     err = 0.0
     t_all = time.perf_counter()
     for dset, n, r in KNN_CHECK:
@@ -1144,6 +1284,17 @@ def phase_knn_check() -> float:
             ("4096 external k=1 r", nearest(1, r, pts=ext), (1,)),
             ("4096 external k=16", nearest(16, pts=ext), (4,)),
             ("4096 external k=100 r", nearest(100, r, pts=ext), (1,))]
+        # each list body at its capacity and one above it (the next body):
+        # resident lanes with inert ones among them, unbounded, and
+        # external lanes capped at r
+        mixed = lanes.clone()
+        mixed[::9] = -1
+        for cap in kknn.CAPACITIES:
+            for kk in (cap, cap + 1):
+                cases += [(f"4099 lanes, inert among them, k={kk}",
+                           nearest(kk, ids=mixed), (1, 4)),
+                          (f"4096 external k={kk} r", nearest(kk, r, pts=ext),
+                           (1, 4))]
         for name, pred, unrolls in cases:
             e, plain_s, k = _check_knn(f"{dset} {name}", segs, tree, index,
                                        pred, unrolls)
@@ -1152,11 +1303,21 @@ def phase_knn_check() -> float:
                 check(int(k.iters.sum()) == 0
                       and bool((k.carry.ids == -1).all()),
                       "inert k-NN lanes did work")
+            if "inert among" in name:
+                dead = mixed < 0
+                check(int(k.iters[dead].sum()) == 0
+                      and bool((k.carry.ids[dead] == -1).all())
+                      and bool((k.iters[~dead] > 0).all()),
+                      "inert k-NN lanes among resident ones did work")
             say("knn-check", dataset=dset, n=n, d=d, case=repr(name),
                 unrolls=",".join(map(str, unrolls)),
+                body=kknn.walk.last_schedule["capacity"],
+                warp_lanes=kknn.walk.last_schedule["warp_lanes"],
                 evals=int(k.evals.sum()), iters_max=int(k.iters.max()),
                 filled=f"{float((k.carry.ids >= 0).float().mean()):.3f}",
                 plain_s=f"{plain_s:.1f}", max_abs_err=e)
+        err = max(err, _knn_refill_grant(dset, segs, tree, index, r, g))
+        err = max(err, _knn_segments(dset, n, r))
     # the lattice: integer coordinates, so equidistant rings are true ties
     xy = np.stack(np.meshgrid(np.arange(7.0), np.arange(7.0)), -1)
     lat = xy.reshape(-1, 2).astype(np.float32)
@@ -1350,10 +1511,14 @@ def phase_knn_timing(out: dict) -> dict:
         io = lanes * (4 * d + 4) + lanes * (8 * k + 8)
         return bound(read + io, evals * 3 * d + visits * 6 * d)
 
-    def counters(tr):
+    def counters(tr, ms):
+        # work units (iters at unroll 1) a second, and the launch's body
+        # and schedule
         return dict(member_tests=int(tr.evals.sum()),
                     node_visits=int(tr.iters.sum() - tr.evals.sum()),
-                    iters_max=int(tr.iters.max()))
+                    iters_max=int(tr.iters.max()),
+                    units_per_s=f"{float(tr.iters.sum()) / ms * 1e3:.4g}",
+                    **kknn.walk.last_schedule)
 
     # launches of 30 ms to 2 s: timed with CUDA events
     every = traversal.nearest(k)
@@ -1363,7 +1528,7 @@ def phase_knn_timing(out: dict) -> dict:
     fb_ms, fb_by = bound_of(full, n)
     say("knn-time", shape=f"{dset} all {n} lanes k={k}",
         ms=f"{full_ms:.3f}", bound_ms=f"{fb_ms:.5f}", bound_by=fb_by,
-        **counters(full))
+        **counters(full, full_ms))
     del full
     # the queries: points of the set (so most lie in halos, where the
     # lists fill within eps), as external lanes
@@ -1372,9 +1537,9 @@ def phase_knn_timing(out: dict) -> dict:
     capped = traversal.nearest(k, eps, pts=q)
     ms = cuda_ms(lambda: kknn.traverse(tree, segs, capped, walk_index=index),
                  5)
-    dev_ms = device_ms(lambda: kknn.traverse(tree, segs, capped,
-                                             walk_index=index),
-                       5, "knn_kernel", 1)
+    dev_ms, timed = launch_ms(kknn, lambda: kknn.traverse(
+        tree, segs, capped, walk_index=index), 5)
+    check(timed == 5, f"knn: {timed} of 5 launches timed")
     k1 = kknn.traverse(tree, segs, capped, unroll=1, walk_index=index)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1391,7 +1556,7 @@ def phase_knn_timing(out: dict) -> dict:
         f"r={eps}", ms=f"{ms:.4f}", device_ms=f"{dev_ms:.4f}",
         plain_ms=f"{plain_ms:.0f}", bound_ms=f"{b_ms:.5f}", bound_by=b_by,
         filled=f"{float((k1.carry.ids >= 0).float().mean()):.3f}",
-        max_abs_err=e, **counters(k1))
+        max_abs_err=e, **counters(k1, ms))
     # the full porto index: resident lanes at its k, capped at its eps
     pdset, pn, pk = NEIGHBORS[1]
     pp = repro_torch.plan(out[("knn", pdset)][0], 0.0, 1,
@@ -1425,7 +1590,7 @@ def phase_knn_timing(out: dict) -> dict:
     say("knn-time", shape=f"{dset} {KNN_TIMED_QUERIES} external k={k}",
         ms=f"{ub_ms_run:.3f}", bound_ms=f"{ub_ms:.5f}", bound_by=ub_by,
         cdist_topk_ms=f"{lib_ms:.3f}", cdist_topk_device_ms=f"{lib_dev:.3f}",
-        **counters(ub))
+        **counters(ub, ub_ms_run))
     return dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
 

@@ -8,6 +8,11 @@ original id), the member tests (``evals``) and the loop trips at a given
 k-NN on its XLA engine (``src/repro/core/traversal.py: traverse_impl``),
 whose loop would sync the host on every trip here.
 
+The kernel has one body per list capacity: the k-best list in registers
+for k <= 16 (capacities :data:`CAPACITIES`), in device memory above.
+:func:`list_capacity` picks the body from k; both kinds are kernels, the
+same walk with the list kept in another place.
+
 :func:`traverse` is the entry ``neighbors.knn`` calls. It dispatches on the
 device of the index: CPU tensors run the plain engine; CUDA tensors launch
 the kernel, which reads the index in the walk kernel's packed layout
@@ -29,9 +34,17 @@ from .walkpack import WalkIndex
 
 # Threads per block (csrc/knn.cu: kBlock).
 BLOCK = 128
+#: the register list's compiled capacities (csrc/knn.cu: knn_launch)
+CAPACITIES = (4, 8, 16)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_I] * 5 + [_F] + [_P] * 11
+_ARGTYPES = [_I] * 6 + [_F] + [_P] * 13
+
+
+def list_capacity(k: int) -> int:
+    """The kernel body for ``k``: the smallest register-list capacity that
+    holds k, or 0 (the list in device memory) for k above 16."""
+    return next((c for c in CAPACITIES if k <= c), 0)
 
 
 def _lib():
@@ -49,7 +62,8 @@ def walk(*, q, qid, index: WalkIndex, order, k: int, r2: float,
     Index: ``index`` from :func:`walkpack.pack_index` over n points, m >= 2
     segments and d in {2, 3}, and ``order`` (n,) i32, the original id of
     each sorted point. ``r2`` is the squared radius cap (``inf`` for none);
-    ``unroll`` only sets the trips ``iters`` reports.
+    ``unroll`` only sets the trips ``iters`` reports. The body is the one of
+    ``list_capacity(k)``.
 
     Returns (ids (L, k) i32, d2 (L, k) f32, evals (L,) i32, iters (L,) i32);
     empty slots hold (-1, +inf).
@@ -79,18 +93,27 @@ def walk(*, q, qid, index: WalkIndex, order, k: int, r2: float,
     iters = torch.empty(L, dtype=torch.int32, device=dev)
     if L == 0:                      # nothing to launch, nothing counted
         return ids, d2, evals, iters
+    nxt = torch.empty(1, dtype=torch.int32, device=dev)  # zeroed at launch
+    cap = list_capacity(k)
+    sched = (ctypes.c_int * 3)()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().knn_launch(
-        d, L, m, int(k), int(unroll), r2, q_p, qid_p, nodes_p, leaf_end_p,
-        pts_p, order_p, ids.data_ptr(), d2.data_ptr(), evals.data_ptr(),
-        iters.data_ptr(), stream)
+        d, cap, L, m, int(k), int(unroll), r2, q_p, qid_p, nodes_p,
+        leaf_end_p, pts_p, order_p, nxt.data_ptr(), ids.data_ptr(),
+        d2.data_ptr(), evals.data_ptr(), iters.data_ptr(), stream,
+        ctypes.addressof(sched))
     _build.check(err, "knn")
     walk.launches += 1
+    walk.last_schedule = dict(capacity=cap, grid=sched[0], block=sched[1],
+                              warp_lanes=sched[2])
     return ids, d2, evals, iters
 
 
-# Kernel launches (a plain integer, read by the on-card smoke run).
+# Kernel launches (a plain integer, read by the on-card smoke run), and the
+# schedule of the latest launch: the list body (capacity, 0 for the list in
+# device memory), blocks, threads a block, lanes a warp walks at once.
 walk.launches = 0
+walk.last_schedule = {}
 
 
 def traverse(tree: Tree, segs: Segments, predicates: traversal.Nearest, *,

@@ -245,7 +245,10 @@ def hacc_index():
 
 @pytest.mark.parametrize("k,radius,lanes,unroll", [
     (1, None, "resident", 1), (16, None, "compacted", 4),
-    (6, 0.06, "external", 1)])
+    (6, 0.06, "external", 1),
+    # the edges of the kernel's list bodies: a register list at its
+    # capacity, and the first k held in device memory
+    (8, None, "external", 4), (17, 0.08, "resident", 1)])
 def test_plain_knn_walk_counters_match_reference(hacc_index, k, radius,
                                                  lanes, unroll):
     (jsegs, jtree), (segs, tree) = hacc_index
@@ -281,6 +284,15 @@ def test_plain_knn_walk_counters_match_reference(hacc_index, k, radius,
                                   port.carry.d2.numpy().view(np.int32))
     np.testing.assert_array_equal(np.asarray(ref.evals), port.evals.numpy())
     np.testing.assert_array_equal(np.asarray(ref.iters), port.iters.numpy())
+
+
+@pytest.mark.parametrize("k,capacity", [
+    (1, 4), (4, 4), (5, 8), (8, 8), (9, 16), (16, 16), (17, 0), (100, 0)])
+def test_knn_kernel_list_body_choice(k, capacity):
+    # the k-NN kernel's body: the smallest register-list capacity that
+    # holds k, the list in device memory (0) above 16
+    assert kknn.list_capacity(k) == capacity
+    assert capacity == 0 or capacity in kknn.CAPACITIES
 
 
 def test_knn_kernel_entry_refuses_cpu_tensors(hacc_index):

@@ -24,7 +24,18 @@ call computes it). Where the tree chooses how many warps share a query
 the tiled path itself (``dbscan`` on 1,000 uniform points, d = 2 and 17):
 the median warm time of ``--reps`` runs (CUDA events) and the device busy
 time of one more. A shape or width the tree refuses is reported with its
-error. ``--only tiles`` skips the walk scenarios.
+error. ``--only tiles`` skips the walk scenarios and the k-NN kernel.
+
+It times the k-NN kernel (``kernels.knn.traverse`` on the fdbscan index,
+``KNN_SHAPES``): all 2,097,152 hacc lanes at k = 16, all 1,048,576 porto
+lanes at k = 8, and 4,096 hacc points as external queries at k = 16,
+capped at eps (the kernel table's shape) and unbounded. For each: CUDA
+events around the launch (median of ``--reps``, fewer for the full sets),
+work units a second (node visits plus member tests: the lanes' ``iters``
+at unroll 1), and a digest of ids, d2, evals and iters. ``--only knn``
+times only these. ``--out FILE`` writes the result; ``--expect FILE``
+(another tree's ``--out``) exits 1 unless every k-NN digest equals that
+file's, so parent and change are held equal as they are timed.
 
 Prints the card's name and power limit and one line ``[times] {json}``
 with the medians and every sample.
@@ -35,6 +46,7 @@ parent, change, change, parent.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib
 import json
 import os
@@ -52,6 +64,14 @@ TILE_SHAPES = [(1000, 1000, 2), (1000, 1000, 3), (1000, 1000, 17),
                (16384, 16384, 2), (16384, 16384, 3)]
 # the tiled path: (n, d, eps, min_pts) on uniform points
 TILED = [(1000, 2, 0.05, 5), (1000, 17, 1.0, 5)]
+# the k-NN kernel: (name, dataset, n, k, external queries or None for all
+# lanes resident, radius cap or None)
+KNN_SHAPES = [("hacc_all_k16", "hacc_like", 2_097_152, 16, None, None),
+              ("porto_all_k8", "portotaxi_like", 1_048_576, 8, None, None),
+              ("hacc_4096_external_k16_eps", "hacc_like", 2_097_152, 16,
+               4096, 0.00595),
+              ("hacc_4096_external_k16", "hacc_like", 2_097_152, 16, 4096,
+               None)]
 INT_MAX = 2**31 - 1
 
 
@@ -240,12 +260,59 @@ def tiles(port, reps: int) -> dict:
     return out
 
 
+def _digest(tr) -> str:
+    h = hashlib.sha256()
+    for t in (tr.carry.ids, tr.carry.d2, tr.evals, tr.iters):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def knn(reps: int) -> dict:
+    port = importlib.import_module("repro_torch")
+    kknn = importlib.import_module("repro_torch.kernels.knn")
+    traversal = importlib.import_module("repro_torch.core.traversal")
+    pointclouds = importlib.import_module("repro_torch.data.pointclouds")
+    out, plans = {}, {}
+    for name, dset, n, k, n_ext, r in KNN_SHAPES:
+        if dset not in plans:
+            p = port.plan(pointclouds.load(dset, n), 0.0, 1,
+                          algorithm="fdbscan", device=torch.device("cuda", 0))
+            plans[dset] = (p.tree, p.segs, p.walk_index)
+        tree, segs, index = plans[dset]
+        q = None
+        if n_ext is not None:   # chip_smoke.py's queries of the table shape
+            g = torch.Generator(device="cpu").manual_seed(9)
+            q = segs.pts[torch.randperm(n, generator=g)[:n_ext].to("cuda")]
+        pred = traversal.nearest(k, r, pts=q)
+
+        def run(unroll=None):
+            return kknn.traverse(tree, segs, pred, unroll=unroll,
+                                 walk_index=index)
+
+        tr = run(1)
+        units = int(tr.iters.sum())
+        shape_reps = reps if n_ext is not None else max(1, reps // 3)
+        samples = [events_ms(run, 1) for _ in range(shape_reps)]
+        ms = statistics.median(samples)
+        out[name] = {"ms": ms, "units": units, "units_per_s": units / ms * 1e3,
+                     "evals": int(tr.evals.sum()),
+                     "iters_max": int(tr.iters.max()),
+                     "schedule": getattr(kknn.walk, "last_schedule", None),
+                     "digest": _digest(tr), "samples": samples}
+        del tr
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True, help="the tree's src directory")
     ap.add_argument("--reps", type=int, default=7)
-    ap.add_argument("--only", choices=["tiles"],
-                    help="time only the tile kernels and the tiled path")
+    ap.add_argument("--only", choices=["tiles", "knn"],
+                    help="time only the tile kernels and the tiled path, or "
+                         "only the k-NN kernel")
+    ap.add_argument("--out", help="write the result as JSON to this file")
+    ap.add_argument("--expect", help="a result of another tree (--out): "
+                                     "exit 1 unless the k-NN digests equal")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("walk_ab: no CUDA device")
@@ -255,8 +322,24 @@ def main() -> None:
     for dset, n, eps, mp in MAIN if a.only is None else []:
         out[dset] = scenario(port, fdbscan, pointclouds, dset, n, eps, mp,
                              a.reps)
-    out["tiles"] = tiles(port, a.reps)
+    if a.only != "knn":
+        out["tiles"] = tiles(port, a.reps)
+    if a.only != "tiles":
+        out["knn"] = knn(a.reps)
     print("[times] " + json.dumps(out), flush=True)
+    if a.out:
+        with open(a.out, "w") as f:
+            json.dump(out, f)
+    if a.expect:
+        with open(a.expect) as f:
+            want = json.load(f)["knn"]
+        differ = [name for name, v in out["knn"].items()
+                  if want[name]["digest"] != v["digest"]]
+        print(f"[expect] {a.expect}: k-NN outputs "
+              f"{'differ in ' + ', '.join(differ) if differ else 'equal'}",
+              flush=True)
+        if differ:
+            sys.exit(1)
 
 
 if __name__ == "__main__":
