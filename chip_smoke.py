@@ -8,10 +8,15 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` with
 k = 1 to 100), drives the port's main paths at full size — clustering,
 ``repro_torch.dbscan(..., algorithm="auto")``, on two scenarios and on the
 tiled path at d = 2, 17 and 64; neighbor queries, ``repro_torch.neighbors``
-``knn`` and ``neighbor_count``, on both scenarios — checks the results
+``knn`` and ``neighbor_count``, on both scenarios; the streaming index,
+``repro_torch.stream_handle``, bootstrapped on the porto scenario with a
+window, a WAL and a checkpoint, through inserts, deletes, a merge, a
+checkpoint, queries, a snapshot and a restore — checks the results
 against a second backend and numpy oracles, shows that every walk and tile
-of each path ran as a kernel, and validates the metrics and trace of an
-instrumented clustering run (``repro_torch.obs``).
+of each path ran as a kernel, holds the streaming index on the card
+against the same index on the host at small sizes, and validates the
+metrics and trace of an instrumented clustering run
+(``repro_torch.obs``).
 
     python3 chip_smoke.py --profile    # adds a per-kernel time breakdown
 
@@ -30,6 +35,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -109,6 +115,23 @@ KNN_TIMED_QUERIES = 4096
 # resident lanes of the full porto index held against the plain engine at
 # its k, capped at its eps (about 1,000 plain steps at unroll 1)
 KNN_PORTO_LANES = 256
+# the streaming index at full scale: the porto scenario of MAIN as the
+# bootstrap set, STREAM_BATCHES inserts of STREAM_BATCH points in a window
+# of the bootstrap size (each insert expires the oldest batch), a delete of
+# STREAM_DELETE_FRAC of the survivors after every fourth insert, a merge
+# after batch STREAM_MERGE_AT and a checkpoint after STREAM_CKPT_AT, and
+# STREAM_BATCH probes after each insert (half the next batch, half uniform
+# in the bounding box)
+STREAM = MAIN[1]
+STREAM_BATCH, STREAM_BATCHES = 16_384, 16
+STREAM_DELETE_FRAC = 0.01
+STREAM_MERGE_AT, STREAM_CKPT_AT = 8, 12
+# the streaming index on the card held against the same index on the host
+# (the plain engine, no kernel), byte for byte after every op, at small
+# sizes (the host walks a trip at a time): (dataset, n, eps, min_pts)
+STREAM_PARITY = [("portotaxi_like", 800, 0.015, 20),
+                 ("hacc_like", 800, 0.04, 5)]
+STREAM_PARITY_BATCH = 120
 
 
 def check(ok: bool, what: str) -> None:
@@ -1658,6 +1681,262 @@ def phase_obs(runs) -> None:
         ok=True)
 
 
+# --------------------------------------------------------------------- #
+# the streaming index                                                    #
+# --------------------------------------------------------------------- #
+
+def _x_window(pts: np.ndarray):
+    """Points sorted by their first axis: a cheap superset of each
+    query's eps-ball for the sampled oracles below."""
+    order = np.argsort(pts[:, 0], kind="stable")
+    return order, pts[order, 0]
+
+
+def _ball(pts, win, q, r32) -> np.ndarray:
+    """Ids of ``pts`` within ``r32`` of ``q`` in the walk's rounding."""
+    order, xs = win
+    lo = np.searchsorted(xs, q[0] - 2 * r32, "left")
+    hi = np.searchsorted(xs, q[0] + 2 * r32, "right")
+    cand = order[lo:hi]
+    d2 = np_d2(q[None, :], pts[cand])
+    return cand[d2 <= r32 * r32]
+
+
+def stream_probes(rng, nxt: np.ndarray, lo, hi) -> np.ndarray:
+    half = STREAM_BATCH // 2
+    uni = rng.uniform(lo, hi, (STREAM_BATCH - half, 2)).astype(np.float32)
+    return np.concatenate([nxt[:half], uni])
+
+
+def run_stream(workdir: str) -> dict:
+    """Drive the streaming index at full scale: ``stream_handle`` over the
+    porto bootstrap set with a window, a WAL and a checkpoint; inserts
+    (each expiring the oldest batch), deletes, one merge, one checkpoint,
+    probe queries after every insert, the final snapshot and a restore
+    from the checkpoint and the WAL. Every op is timed on the host clock
+    around a synchronised call."""
+    from repro_torch.stream import StreamingDBSCAN
+    dset, n, eps, mp = STREAM
+    allp = pointclouds.load(dset, n + STREAM_BATCHES * STREAM_BATCH)
+    boot = allp[:n]
+    batches = [allp[n + i * STREAM_BATCH:n + (i + 1) * STREAM_BATCH]
+               for i in range(STREAM_BATCHES)]
+    lo, hi = allp.min(0), allp.max(0)
+    rng = np.random.default_rng(11)
+    wal = os.path.join(workdir, "wal.bin")
+    ckpt = os.path.join(workdir, "ckpt.npz")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = {"inserts": [], "deletes": [], "queries": [], "probes": []}
+
+    def clock(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    h, out["bootstrap_s"] = clock(
+        lambda: repro_torch.stream_handle(boot, eps, mp, window=n, wal=wal,
+                                          checkpoint_path=ckpt))
+    for i, batch in enumerate(batches):
+        if i + 1 < len(batches):
+            _, s = clock(h.insert, batch)
+        else:
+            # the last insert under the port's span tracer: where an
+            # insert's time goes (host clock, spans nest)
+            with obs.instrumented() as (reg, tracer):
+                _, s = clock(h.insert, batch)
+            out["split"] = tracer.events
+            out["split_launches"] = {
+                kind: int(reg.get("pallas_kernel_launches_total",
+                                  kind=kind).value)
+                for kind in kt.KIND_NAMES
+                if reg.get("pallas_kernel_launches_total", kind=kind)}
+        out["inserts"].append(s)
+        if (i + 1) % 4 == 0:
+            alive = h.active_gids
+            gone = np.sort(rng.choice(alive, int(len(alive)
+                                                 * STREAM_DELETE_FRAC),
+                                      replace=False))
+            k, s = clock(h.delete, gone)
+            check(k == len(gone), f"stream delete removed {k} of "
+                                  f"{len(gone)} ids")
+            out["deletes"].append(s)
+        if i + 1 == STREAM_MERGE_AT:
+            _, out["merge_s"] = clock(h.merge)
+        if i + 1 == STREAM_CKPT_AT:
+            _, out["checkpoint_s"] = clock(h.checkpoint)
+        nxt = batches[i + 1] if i + 1 < len(batches) else batch
+        probes = stream_probes(rng, nxt, lo, hi)
+        q, s = clock(h.query, probes)
+        out["queries"].append(s)
+        out["probes"].append((probes, q, h.points))
+    out["snapshot"], out["snapshot_s"] = clock(h.snapshot)
+    restored, out["restore_s"] = clock(
+        lambda: StreamingDBSCAN.restore(ckpt, wal=wal))
+    out["restored"] = restored.snapshot()
+    restored._wal.close()
+    h._wal.close()
+    out["handle"] = h
+    out["peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    return out
+
+
+def check_stream(out: dict, seen: dict) -> None:
+    """The stream path's launches; probe counts against the numpy oracle;
+    the final snapshot against batch fdbscan on the survivors, its borders
+    against the rule, and the restored handle's snapshot against the live
+    one's; dbscan(algorithm="stream") against fdbscan on the bootstrap
+    set."""
+    dset, n, eps, mp = STREAM
+    check(seen["walk"] > 0, "the walk kernel never ran on the stream path")
+    check(seen["plain_walk_runs"] == 0, f"the plain walk ran "
+          f"{seen['plain_walk_runs']} times on the stream path")
+    h = out["handle"]
+    r32 = np.float32(eps)
+    checked = 0
+    for probes, q, active in out["probes"]:
+        check(q.labels.shape == (STREAM_BATCH,) and q.labels.dtype == np.int32
+              and q.counts.dtype == np.int32, "stream query malformed")
+        win = _x_window(active)
+        for row in _sampled(STREAM_BATCH, 9 + checked):
+            want = min(len(_ball(active, win, probes[row], r32)), mp)
+            check(int(q.counts[row]) == want
+                  and bool(q.would_be_core[row]) == (want + 1 >= mp),
+                  f"stream query probe {row}: count {q.counts[row]} != "
+                  f"oracle {want}")
+        checked += 1
+    snap, restored = out["snapshot"], out["restored"]
+    check(torch.equal(snap.labels, restored.labels)
+          and torch.equal(snap.core_mask, restored.core_mask)
+          and snap.n_clusters == restored.n_clusters,
+          "restored handle's snapshot differs from the live handle's")
+    surv = h.points
+    check_result(snap, len(surv), "stream snapshot")
+    batch = repro_torch.dbscan(surv, eps, mp, algorithm="fdbscan")
+    torch.cuda.synchronize()
+    labels, core = snap.labels.cpu().numpy(), snap.core_mask.cpu().numpy()
+    validate.check_component_identical(labels, core,
+                                       batch.labels.cpu().numpy(),
+                                       batch.core_mask.cpu().numpy())
+    # borders: the min label among the core points within eps
+    win = _x_window(surv)
+    borders = np.flatnonzero(~core & (labels >= 0))
+    pick = borders[_sampled(len(borders), 10)] if len(borders) > \
+        ORACLE_QUERIES else borders
+    for b in pick:
+        nb = _ball(surv, win, surv[b], r32)
+        nb = nb[core[nb]]
+        check(len(nb) > 0 and labels[b] == labels[nb].min(),
+              f"stream border {b}: label {labels[b]}, core neighbours' "
+              f"labels {np.unique(labels[nb])}")
+    boot = pointclouds.load(dset, n)
+    one = repro_torch.dbscan(boot, eps, mp, algorithm="stream")
+    ref = repro_torch.dbscan(boot, eps, mp, algorithm="fdbscan")
+    check(one.backend == "stream" and one.labels.device.type == "cuda",
+          f"dbscan(algorithm='stream') ran as {one.backend}")
+    validate.check_component_identical(one.labels.cpu().numpy(),
+                                       one.core_mask.cpu().numpy(),
+                                       ref.labels.cpu().numpy(),
+                                       ref.core_mask.cpu().numpy())
+    ins = np.array(out["inserts"]) * 1e3
+    say("stream", dataset=dset, n=n, batch=STREAM_BATCH,
+        batches=STREAM_BATCHES, eps=eps, min_pts=mp,
+        bootstrap_s=f"{out['bootstrap_s']:.3f}",
+        insert_ms_p50=f"{np.median(ins):.1f}", insert_ms_max=f"{ins.max():.1f}",
+        delete_ms=",".join(f"{s * 1e3:.1f}" for s in out["deletes"]),
+        query_ms_p50=f"{np.median(out['queries']) * 1e3:.1f}",
+        query_ms_max=f"{max(out['queries']) * 1e3:.1f}",
+        merge_s=f"{out['merge_s']:.3f}",
+        checkpoint_s=f"{out['checkpoint_s']:.3f}",
+        restore_s=f"{out['restore_s']:.3f}",
+        snapshot_ms=f"{out['snapshot_s'] * 1e3:.1f}",
+        repair_sweeps=h.n_repair_sweeps, merges=h.n_merges,
+        compactions=h.n_compactions, tiers=h.n_tiers,
+        walk_launches=seen["walk"],
+        peak_mb_over_start=f"{out['peak_mb']:.0f}")
+    say("check", path="stream", vs="fdbscan on the survivors + numpy "
+        "oracle + restore", ok=True, survivors=len(surv),
+        n_clusters=snap.n_clusters, oracle_probes=checked * ORACLE_QUERIES,
+        borders_checked=len(pick))
+    ms, calls = {}, {}
+    for e in out["split"]:
+        ms[e["name"]] = ms.get(e["name"], 0.0) + e["dur"] / 1e3
+        calls[e["name"]] = calls.get(e["name"], 0) + 1
+    say("stream-split", op="last insert", **{
+        f"{name.replace('stream.', '')}_ms": f"{t:.1f}x{calls[name]}"
+        for name, t in sorted(ms.items())},
+        **{f"{kind}_launches": k
+           for kind, k in out["split_launches"].items()})
+
+
+def _stream_state(h) -> dict:
+    host = (lambda t: t.cpu().numpy())
+    return {"counts": host(h._counts), "core": host(h._core),
+            "labels": host(h._labels), "tombstone": host(h._tombstone),
+            "levels": [host(lv.gids) for lv in h._levels()],
+            "counters": (h.n_points, h.n_repair_sweeps, h.n_compactions,
+                         h.n_merges, h.n_tiers)}
+
+
+def _same_stream(a, b, what: str) -> None:
+    sa, sb = _stream_state(a), _stream_state(b)
+    for key in ("counts", "core", "labels", "tombstone"):
+        check(sa[key].dtype == sb[key].dtype
+              and np.array_equal(sa[key], sb[key]),
+              f"stream parity {what}: {key} differs")
+    check(sa["counters"] == sb["counters"]
+          and len(sa["levels"]) == len(sb["levels"])
+          and all(np.array_equal(x, y)
+                  for x, y in zip(sa["levels"], sb["levels"])),
+          f"stream parity {what}: counters or levels differ")
+
+
+def phase_stream_parity() -> None:
+    """The streaming index on the card (every level walk the kernel)
+    against the same index on the host (every walk the plain engine),
+    byte for byte after every op: bootstrap with a window, inserts that
+    seal tiers, a delete, a merge, queries and both snapshots."""
+    from repro_torch.stream import StreamingDBSCAN
+    b = STREAM_PARITY_BATCH
+    for dset, n, eps, mp in STREAM_PARITY:
+        pts = pointclouds.load(dset, n + 2 * b, seed=4)
+        hs = [StreamingDBSCAN(pts[:n], eps, mp, window=n, buffer_max=100,
+                              device=dev) for dev in (DEV, "cpu")]
+        _same_stream(*hs, f"{dset} bootstrap")
+        rng = np.random.default_rng(5)
+        for i in range(2):
+            for h in hs:
+                h.insert(pts[n + i * b:n + (i + 1) * b])
+            _same_stream(*hs, f"{dset} insert {i}")
+            if i == 1:
+                gone = np.sort(rng.choice(hs[0].active_gids, b // 5,
+                                          replace=False))
+                check(hs[0].delete(gone) == hs[1].delete(gone),
+                      "stream parity: deletes differ")
+                for h in hs:
+                    h.merge()
+                _same_stream(*hs, f"{dset} delete + merge")
+            probes = np.concatenate([
+                pts[n + i * b:n + i * b + 100],
+                rng.uniform(pts.min(0), pts.max(0),
+                            (100, pts.shape[1])).astype(np.float32)])
+            qa, qb = (h.query(probes) for h in hs)
+            check(all(np.array_equal(x, y) for x, y in zip(qa, qb)),
+                  f"stream parity {dset}: query {i} differs")
+        for star in (False, True):
+            sa, sb = (h.snapshot(star=star) for h in hs)
+            check(torch.equal(sa.labels.cpu(), sb.labels)
+                  and torch.equal(sa.core_mask.cpu(), sb.core_mask)
+                  and sa.n_clusters == sb.n_clusters,
+                  f"stream parity {dset}: snapshot star={star} differs")
+        say("stream-parity", dataset=dset, n=n, d=pts.shape[1],
+            repair_sweeps=hs[0].n_repair_sweeps,
+            compactions=hs[0].n_compactions, ok=True)
+
+
 def timed(phase: str, fn, *args):
     """``fn(*args)``, with a line giving its wall time."""
     t0 = time.perf_counter()
@@ -1695,6 +1974,15 @@ def main() -> None:
     knn_t = timed("knn-time", phase_knn_timing, nb)
     del nb
     timed("obs", phase_obs, runs)
+
+    reset_counts()
+    with tempfile.TemporaryDirectory() as workdir:
+        st = timed("stream", run_stream, workdir)
+    seen_st = counts()
+    say("counts", path="stream", **seen_st)
+    timed("stream-check", check_stream, st, seen_st)
+    del st
+    timed("stream-parity", phase_stream_parity)
     timed("degenerate", phase_degenerate)
     if args.profile:
         phase_profile(runs)
@@ -1706,7 +1994,7 @@ def main() -> None:
     kernels = [
         dict(name="walk", route="cuda", source=f"{csrc}/walk.cu",
              replaces="src/repro/kernels/traverse.py:98",
-             launches=seen["walk"], **walk_t),
+             launches=seen["walk"] + seen_st["walk"], **walk_t),
         dict(name="pairwise_count", route="cuda",
              source=f"{csrc}/pairwise.cu",
              replaces="src/repro/kernels/pairwise.py:67",

@@ -18,10 +18,16 @@ serving the backends:
                            for API parity). On the card an auto tree
                            decision becomes this backend; the index stays
                            the one the decision chose.
+  * ``stream``           — a one-shot snapshot of a streaming handle
+                           (``repro_torch.stream``) bootstrapped over the
+                           cached plain fdbscan index; :func:`stream_handle`
+                           and :func:`tenant_handles` return live handles
+                           over the same index.
 
 Every walk runs where the points are: on a CUDA device each walk of every
-tree backend is the walk kernel, so the tree backends differ on the card
-only in their index; on the CPU each walk is the plain engine.
+tree backend, and every level walk of a streaming handle, is the walk
+kernel, so the tree backends differ on the card only in their index; on
+the CPU each walk is the plain engine.
 
 ``plan()`` performs the (cacheable) decision + index build; ``dbscan()``
 executes a plan. Plans are memoized in a small LRU keyed by point-set
@@ -62,7 +68,6 @@ ALGORITHMS = ("auto", "fdbscan", "fdbscan-densebox", "tiled", "sharded",
 # ROADMAP item that brings each.
 _NOT_YET = {
     "sharded": "ROADMAP Queue 1, distributed (multi-device tree path)",
-    "stream": "ROADMAP Queue 1, stream and durability (streaming index)",
 }
 
 
@@ -111,9 +116,11 @@ def _maybe_kernel(p: "Plan", algorithm: str) -> "Plan":
 class Plan(NamedTuple):
     """A resolved backend choice plus the (reusable) index that drove it.
 
-    backend: one of "fdbscan", "fdbscan-densebox", "pallas-tree", "tiled".
+    backend: one of "fdbscan", "fdbscan-densebox", "pallas-tree", "tiled",
+        "stream".
     segs / tree: the segment index and its LBVH (None for the index-free
-        tiled backend, and tree is None below two segments).
+        tiled backend, and tree is None below two segments); a stream plan
+        carries the plain fdbscan index its handles bootstrap from.
     stats: occupancy/size stats behind the choice; ``stats["reason"]``
         states why this backend won.
     device: where the index lives and the clustering runs.
@@ -217,9 +224,10 @@ def plan(points, eps: float, min_pts: int, algorithm: str = "auto",
 
     Raises:
         ValueError: unknown ``algorithm``; negative ``eps``; malformed
-            ``points`` (see :func:`check_points`).
-        NotImplementedError: ``sharded``, ``stream`` or ``mesh=``, which
-            later ROADMAP items bring.
+            ``points`` (see :func:`check_points`); a stream request with
+            d not in (2, 3).
+        NotImplementedError: ``sharded`` or ``mesh=``, which a later
+            ROADMAP item brings.
     """
     with obs_trace.span("plan", algorithm=algorithm) as sp:
         p = _plan_impl(points, eps, min_pts, algorithm, mesh, device)
@@ -256,6 +264,15 @@ def _plan_impl(points, eps: float, min_pts: int, algorithm: str, mesh,
     obs_metrics.inc("dispatch_plan_cache_misses_total")
 
     stats: dict = {"n": n, "d": d}
+    if algorithm == "stream":
+        # the streaming handle wraps the plain fdbscan index, which is
+        # eps-independent — every (eps, min_pts) stream plan for the same
+        # point set shares one cached index build (and its packed layout)
+        if d not in (2, 3):
+            raise ValueError(f"streaming index needs d in (2, 3); got {d}")
+        stats["reason"] = "explicit: streaming tiered index"
+        return _cache_put(key, _fdbscan_plan(points, pkey, stats)._replace(
+            backend="stream"))
     if algorithm == "tiled" or (algorithm == "auto" and n <= TILED_MAX_POINTS):
         stats["reason"] = ("explicit" if algorithm == "tiled"
                            else f"n <= {TILED_MAX_POINTS}: tiles win")
@@ -327,7 +344,8 @@ def dbscan(points, eps: float, min_pts: int, *, algorithm: str = "auto",
     Raises:
         RuntimeError: no CUDA device and no ``device`` given.
         ValueError: invalid parameters (see :func:`plan`), or ``frontier``
-            combined with the tiled backend, which would ignore it.
+            combined with the tiled or stream backend, which would ignore
+            it.
         NotImplementedError: see :func:`plan`.
     """
     n = check_points(points).shape[0]
@@ -335,14 +353,23 @@ def dbscan(points, eps: float, min_pts: int, *, algorithm: str = "auto",
         p = query_plan
     else:
         p = plan(points, eps, min_pts, algorithm, mesh, device=device)
-    if p.backend == "tiled" and frontier is not True:
+    if p.backend in ("tiled", "stream") and frontier is not True:
         raise ValueError(
-            f"frontier={frontier!r} is incompatible with the tiled "
+            f"frontier={frontier!r} is incompatible with the {p.backend} "
             "backend: frontier restriction only applies to the "
             "tree-sweep backends and would silently be ignored (drop "
             "the kwarg, or pick algorithm='fdbscan'/'fdbscan-densebox')")
     with obs_trace.span("dbscan", backend=p.backend, n=n) as sp:
-        if p.backend == "tiled":
+        if p.backend == "stream":
+            # one-shot execution of a stream plan: bootstrap a handle over
+            # the plan's (cached, eps-independent) index and materialize
+            # labels
+            from repro_torch.stream import StreamingDBSCAN
+            h = StreamingDBSCAN(points, eps, min_pts,
+                                index=(p.segs, p.tree, p.walk_index),
+                                device=p.device)
+            res = h.snapshot(star=star)
+        elif p.backend == "tiled":
             from repro_torch.kernels import ops
             res = ops.dbscan_tiled(as_points(points, p.device), eps,
                                    min_pts, star=star)
@@ -355,3 +382,96 @@ def dbscan(points, eps: float, min_pts: int, *, algorithm: str = "auto",
     obs_metrics.inc("dbscan_runs_total", backend=p.backend)
     obs_metrics.observe("dbscan_sweeps", res.n_sweeps, backend=p.backend)
     return res
+
+
+def stream_handle(points, eps: float, min_pts: int, *,
+                  window: int | None = None,
+                  wal=None, checkpoint_path: str | None = None,
+                  checkpoint_every: int = 0, device=None, **kwargs):
+    """Build a :class:`repro_torch.stream.StreamingDBSCAN` handle over
+    ``points``.
+
+    Goes through :func:`plan`, so the handle's main tree is the *cached*
+    eps-independent fdbscan index, with its packed layout for the walk
+    kernel — building handles (or running batch ``dbscan``) for several
+    ``eps``/``min_pts`` values over the same point set shares one index
+    build.
+
+    The durability options make the handle crash-safe (DESIGN.md §10):
+    with ``wal`` every insert is durably logged before it is applied, and
+    with ``checkpoint_path`` (+ ``checkpoint_every``) the full state is
+    atomically serialized every K index merges. After a crash,
+    ``StreamingDBSCAN.restore(checkpoint_path, wal=wal)`` rebuilds the
+    handle from the last checkpoint plus a WAL replay. The files are the
+    reference's format: either package restores the other's.
+
+    Args:
+        points: (n, d) initial points, d in (2, 3).
+        eps: DBSCAN radius (positive).
+        min_pts: DBSCAN density threshold.
+        window: optional sliding-window size — every insert auto-expires
+            points whose insert id falls below ``n_points - window``
+            (insert-order watermark; see ``StreamingDBSCAN.expire``).
+        wal: optional write-ahead-log path (or a prebuilt
+            ``repro_torch.stream.durability.WriteAheadLog``).
+        checkpoint_path: optional checkpoint file for
+            :meth:`StreamingDBSCAN.checkpoint` and the auto policy.
+        checkpoint_every: auto-checkpoint after every K merges (0 = off).
+        device: where the handle lives and walks; default the current
+            CUDA device (``RuntimeError`` if there is none).
+        **kwargs: passed to the handle (e.g. ``merge_ratio``, the
+            delta/main size ratio that triggers a full index merge, or
+            ``buffer_max``/``growth``, the tiered-compaction knobs).
+
+    Returns:
+        A live ``StreamingDBSCAN`` handle exposing ``insert`` /
+        ``delete`` / ``expire`` / ``query`` / ``snapshot`` / ``merge`` /
+        ``compact`` / ``checkpoint``; after any interleaving of inserts,
+        deletes, expiries, merges and compactions, ``snapshot()`` is
+        component-identical to batch :func:`dbscan` on exactly the
+        surviving points.
+
+    Raises:
+        RuntimeError: no CUDA device and no ``device`` given.
+        ValueError: malformed ``points`` (empty, NaN/Inf, d outside
+            (2, 3)), negative ``eps``, or inserts that change
+            dimensionality (raised by the handle).
+        repro_torch.stream.durability.WALError: ``wal`` names a file with
+            leftover records from a crashed run (restore it instead).
+    """
+    from repro_torch.stream import StreamingDBSCAN
+    p = plan(points, eps, min_pts, algorithm="stream", device=device)
+    return StreamingDBSCAN(points, eps, min_pts,
+                           index=(p.segs, p.tree, p.walk_index),
+                           window=window, wal=wal,
+                           checkpoint_path=checkpoint_path,
+                           checkpoint_every=checkpoint_every,
+                           device=p.device, **kwargs)
+
+
+def tenant_handles(points, tenants: dict, *, device=None) -> dict:
+    """Build one streaming handle per tenant over ONE shared index build.
+
+    ``tenants`` maps tenant name -> kwargs for :func:`stream_handle`
+    (``eps`` and ``min_pts`` required; durability/window/compaction
+    options per tenant). The eps-independent part of the bootstrap — the
+    Morton sort + LBVH over ``points`` and its packed layout — is cached
+    under the point set's content hash, so N tenants cost one index build
+    plus N eps-dependent clusterings; ``dispatch_index_builds_total``
+    moves by exactly one however many tenants share the point set.
+    ``device`` applies to every tenant (default the current CUDA device).
+    """
+    if not tenants:
+        raise ValueError("tenant_handles needs at least one tenant")
+    handles = {}
+    with obs_trace.span("plan.tenants", n_tenants=len(tenants)):
+        for name, kw in tenants.items():
+            kw = dict(kw)
+            try:
+                eps = kw.pop("eps")
+                min_pts = kw.pop("min_pts")
+            except KeyError as e:
+                raise ValueError(f"tenant {name!r}: missing {e} in spec")
+            handles[name] = stream_handle(points, eps, min_pts,
+                                          device=device, **kw)
+    return handles

@@ -40,10 +40,12 @@ from . import grid, lbvh, traversal, unionfind
 
 INT_MAX = traversal.INT_MAX
 
+# The reference's padding floor: the smallest bucket of _pad_size.
+_PAD_MIN = 64
 # Floor of the frontier size below which a sweep re-traverses only the
-# queries near a changed point (the reference's padding floor, which sets
-# the same threshold there).
-_SMALL_FRONTIER_MIN = 64
+# queries near a changed point (the padding floor sets the same threshold
+# in the reference).
+_SMALL_FRONTIER_MIN = _PAD_MIN
 
 
 class DBSCANResult(NamedTuple):
@@ -138,6 +140,21 @@ def _fused_first_pass(tree, segs, eps, min_pts: int, *, walk_index=None):
     # from points whose label changed since init.
     absorbed = cand_ok & core
     return core, labels0, vals0, absorbed, tr
+
+
+def _pad_size(k: int) -> int:
+    """The reference's pad length for ``k`` lanes or points: quarter-power-
+    of-two buckets, at least :data:`_PAD_MIN`. The port compiles nothing
+    per shape and pads no lanes, but the streaming index pads its levels to
+    these sizes (so a level is the same index in both packages) and names
+    its walk signatures by them."""
+    size = _PAD_MIN
+    while size < k:
+        size *= 2
+    if size > _PAD_MIN:
+        quarter = size // 4
+        size = -(-k // quarter) * quarter
+    return max(size, _PAD_MIN)
 
 
 def _compact_ids(mask: torch.Tensor) -> torch.Tensor:

@@ -50,10 +50,13 @@ def f32(value, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(value, dtype=torch.float32, device=like.device)
 
 
-def quantize(points: torch.Tensor, n_bits: int) -> torch.Tensor:
+def quantize(points: torch.Tensor, n_bits: int, lo=None,
+             hi=None) -> torch.Tensor:
     """Quantize ``points`` (n, d) into int64 grid coords in [0, 2**n_bits)."""
-    lo = points.amin(0)
-    hi = points.amax(0)
+    if lo is None:
+        lo = points.amin(0)
+    if hi is None:
+        hi = points.amax(0)
     extent = torch.clamp_min(hi - lo, torch.finfo(points.dtype).tiny)
     scale = f32(2.0**n_bits - 1.0, points) / extent
     q = torch.floor((points - lo) * scale)
@@ -61,15 +64,20 @@ def quantize(points: torch.Tensor, n_bits: int) -> torch.Tensor:
     return q.to(torch.int64)
 
 
-def morton_encode(points: torch.Tensor) -> torch.Tensor:
+def morton_encode(points: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
     """Morton codes (int64 holding the uint32 value) for (n, 2) or (n, 3)
-    float32 points."""
+    float32 points.
+
+    ``lo``/``hi`` override the quantization bounds (default: the data's own
+    extent). The streaming index passes the bounds of a level's real
+    points, so its padding sentinels clip to the top cell instead of
+    stretching the grid."""
     d = points.shape[-1]
     if d == 2:
-        q = quantize(points, BITS_2D)
+        q = quantize(points, BITS_2D, lo, hi)
         return (_expand_bits_2d(q[:, 0]) << 1) | _expand_bits_2d(q[:, 1])
     if d == 3:
-        q = quantize(points, BITS_3D)
+        q = quantize(points, BITS_3D, lo, hi)
         return ((_expand_bits_3d(q[:, 0]) << 2)
                 | (_expand_bits_3d(q[:, 1]) << 1)
                 | _expand_bits_3d(q[:, 2]))

@@ -193,9 +193,16 @@ def test_negative_eps_and_bad_points_raise():
 
 @pytest.mark.parametrize("algorithm", ["sharded", "stream"])
 def test_later_backends_name_their_roadmap_item(algorithm):
+    """``sharded`` and ``mesh=`` name the ROADMAP item that brings them;
+    ``stream``, which the port has now, runs (and refuses ``mesh=``)."""
     pts = separated_points(50, 2, eps=0.1, seed=0)
+    if algorithm == "stream":
+        assert _run(pts, 0.1, 3, algorithm=algorithm).backend == "stream"
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _run(pts, 0.1, 3, algorithm=algorithm)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _run(pts, 0.1, 3, algorithm=algorithm)
+        _run(pts, 0.1, 3, algorithm=algorithm, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _run(pts, 0.1, 3, mesh=object())
 

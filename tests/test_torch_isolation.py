@@ -1,8 +1,9 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the reference package, importing and
-running the port (clustering, neighbor queries, under the port's own
-collectors) loads neither, and without a CUDA device the entry points
-refuse to run unless the caller asks for the CPU."""
+"""The port stands alone: no module of ``src/repro_torch`` (the
+``stream`` package included) and not ``chip_smoke.py`` imports JAX or the
+reference package, importing and running the port (clustering, neighbor
+queries, a streaming handle with a WAL, a checkpoint and a restore, under
+the port's own collectors) loads neither, and without a CUDA device the
+entry points refuse to run unless the caller asks for the CPU."""
 import ast
 import os
 import subprocess
@@ -53,9 +54,12 @@ def test_no_module_imports_jax_or_the_reference():
 
 def test_running_the_port_loads_neither_jax_nor_the_reference():
     code = textwrap.dedent("""
+        import os
         import sys
+        import tempfile
         import numpy as np
         import repro_torch
+        import repro_torch.stream
         from repro_torch import obs
         from repro_torch.data import pointclouds
         pts = pointclouds.load("blobs", 300)
@@ -70,6 +74,22 @@ def test_running_the_port_loads_neither_jax_nor_the_reference():
         assert knn.indices.shape == (300, 3) and counts.shape == (300,)
         assert reg.get("dbscan_runs_total", backend="fdbscan-densebox")
         assert [e["name"] for e in tracer.events][-1] == "plan"
+        with obs.instrumented() as (reg, tracer):
+            with tempfile.TemporaryDirectory() as tmp:
+                h = repro_torch.stream_handle(
+                    pts[:200], 0.05, 5, device="cpu", buffer_max=40,
+                    wal=os.path.join(tmp, "w"),
+                    checkpoint_path=os.path.join(tmp, "c.npz"))
+                h.insert(pts[200:])
+                h.delete([0, 1, 2])
+                q = h.query(pts[:10])
+                snap = h.snapshot()
+                back = repro_torch.stream.StreamingDBSCAN.restore(
+                    os.path.join(tmp, "c.npz"), wal=os.path.join(tmp, "w"),
+                    device="cpu")
+                assert (back.snapshot().labels == snap.labels).all()
+        assert q.labels.shape == (10,) and snap.labels.shape == (297,)
+        assert reg.get("stream_inserts_total").value == 2.0
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not bad, bad
@@ -98,4 +118,14 @@ def test_no_cuda_and_no_device_raises(monkeypatch):
         repro_torch.neighbors.knn(pts, 3)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         repro_torch.neighbors.neighbor_count(pts, 0.1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.dbscan(pts, 0.1, 3, algorithm="stream")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.stream_handle(pts, 0.1, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dispatch.tenant_handles(pts, {"a": {"eps": 0.1, "min_pts": 3}})
+    from repro_torch.stream import StreamingDBSCAN
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingDBSCAN(None, 0.1, 3)
     assert repro_torch.dbscan(pts, 0.1, 3, device="cpu").labels.shape == (50,)
+    assert repro_torch.stream_handle(pts, 0.1, 3, device="cpu").n_points == 50

@@ -309,8 +309,10 @@ def test_knn_kernel_entry_refuses_cpu_tensors(hacc_index):
 
 
 def test_top_level_exports():
+    # the reference's public surface, stream_handle included
     assert set(repro_torch.__all__) == {"DBSCANResult", "dbscan", "plan",
-                                        "neighbors", "__version__"}
+                                        "stream_handle", "neighbors",
+                                        "__version__"}
     pts = pointclouds.blobs(300, seed=1)
     assert repro_torch.neighbors.knn(
         pts, 2, device="cpu").indices.shape == (300, 2)
