@@ -11,7 +11,10 @@ tiled path at d = 2, 17 and 64; neighbor queries, ``repro_torch.neighbors``
 ``knn`` and ``neighbor_count``, on both scenarios; the streaming index,
 ``repro_torch.stream_handle``, bootstrapped on the porto scenario with a
 window, a WAL and a checkpoint, through inserts, deletes, a merge, a
-checkpoint, queries, a snapshot and a restore — checks the results
+checkpoint, queries, a snapshot and a restore; the serving plane,
+``repro_torch.serve.Server``, with two tenants over the same set under
+concurrent inserts and queries, then a restore, and its CLI,
+``python -m repro_torch.launch.serve`` — checks the results
 against a second backend and numpy oracles, shows that every walk and tile
 of each path ran as a kernel, holds the streaming index on the card
 against the same index on the host at small sizes, and validates the
@@ -36,6 +39,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -132,6 +136,22 @@ STREAM_MERGE_AT, STREAM_CKPT_AT = 8, 12
 STREAM_PARITY = [("portotaxi_like", 800, 0.015, 20),
                  ("hacc_like", 800, 0.04, 5)]
 STREAM_PARITY_BATCH = 120
+# the serving plane at the stream run's size: a Server over the porto
+# bootstrap set with two tenants (the stream run's eps and min_pts, and one
+# coarser), durability files in a temporary directory, SERVE_INSERTS
+# batches of SERVE_BATCH next points submitted in turn while SERVE_CLIENTS
+# query clients send requests of SERVE_PROBES probes (half jittered
+# residents, half uniform) for the whole phase, SERVE_IDLE_S of them after
+# the last insert; then one more batch with no client running (the writer
+# alone, for comparison), shutdown and Server.restore
+SERVE_TENANTS = [("a", 0.00125, 50), ("b", 0.0025, 20)]
+SERVE_BATCH, SERVE_INSERTS = 16_384, 8
+SERVE_CLIENTS, SERVE_PROBES, SERVE_IDLE_S = 2, (64, 512), 3.0
+# replies per tenant held against the same version's snapshot rebuilt on
+# the host from the same frozen state
+SERVE_SAMPLED = 64
+# the serving CLI (python -m repro_torch.launch.serve) on the card
+SERVE_CLI_N, SERVE_CLI_STEPS = 262_144, 20
 
 
 def check(ok: bool, what: str) -> None:
@@ -1508,8 +1528,9 @@ def phase_knn_timing(out: dict) -> dict:
     same inputs (held equal), and the bound. On the full porto index at
     its k, KNN_PORTO_LANES resident lanes capped at its eps, held against
     the plain engine at unroll 1 and 4. As a reference point, the table
-    shape's queries unbounded: the launch's time beside the device time
-    of ``cdist`` + ``topk`` (whose tie rule differs)."""
+    shape's queries unbounded: the launch's time beside the time of
+    ``cdist`` + ``topk`` (CUDA events around the calls; its tie rule
+    differs)."""
     dset, n, k = NEIGHBORS[0]
     eps = MAIN[0][2]
     pts = out[("knn", dset)][0]
@@ -1608,12 +1629,13 @@ def phase_knn_timing(out: dict) -> dict:
         for c in q.split(KNN_TIMED_QUERIES // 4):
             torch.cdist(c, x).topk(k, largest=False)
 
+    # CUDA events around the calls, as the port's own launches are timed:
+    # this late in a full run the profiler lost 27 of 344 kernel records of
+    # two calls in every session of two runs
     lib_ms = cuda_ms(cdist_topk, 2)
-    lib_dev = device_ms(cdist_topk, 2)
     say("knn-time", shape=f"{dset} {KNN_TIMED_QUERIES} external k={k}",
         ms=f"{ub_ms_run:.3f}", bound_ms=f"{ub_ms:.5f}", bound_by=ub_by,
-        cdist_topk_ms=f"{lib_ms:.3f}", cdist_topk_device_ms=f"{lib_dev:.3f}",
-        **counters(ub, ub_ms_run))
+        cdist_topk_ms=f"{lib_ms:.3f}", **counters(ub, ub_ms_run))
     return dict(max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
 
@@ -1937,6 +1959,315 @@ def phase_stream_parity() -> None:
             compactions=hs[0].n_compactions, ok=True)
 
 
+# --------------------------------------------------------------------- #
+# the serving plane                                                      #
+# --------------------------------------------------------------------- #
+
+def serve_probes(rng, pts: np.ndarray, k: int, lo, hi) -> np.ndarray:
+    """``k`` probes: half residents jittered by a fifth of the smallest
+    eps, half uniform in the bounding box."""
+    half = k // 2
+    near = pts[rng.integers(0, len(pts), half)] + rng.normal(
+        0.0, 0.2 * SERVE_TENANTS[0][1], (half, 2)).astype(np.float32)
+    uni = rng.uniform(lo, hi, (k - half, 2)).astype(np.float32)
+    return np.concatenate([near, uni]).astype(np.float32)
+
+
+def run_serve(workdir: str) -> dict:
+    """Drive the serving plane at the stream run's size through its entry
+    points: ``Server`` over the porto bootstrap set (two tenants, durability
+    on), inserts submitted in turn while query clients run, then an idle
+    spell, ``shutdown()`` and ``Server.restore``. Every snapshot's frozen
+    state is kept (``IndexSnapshot.build`` recorded) for the checks.
+    Collectors are installed without sync, so no span waits on the card."""
+    from repro_torch import serve
+    from repro_torch.serve import snapshot as serve_snapshot
+    dset, n, _, _ = STREAM
+    allp = pointclouds.load(dset, n + (SERVE_INSERTS + 1) * SERVE_BATCH)
+    boot = allp[:n]
+    lo, hi = allp.min(0), allp.max(0)
+    frozen = {}                         # (eps, min_pts, version) -> state
+    build = serve_snapshot.IndexSnapshot.build.__func__
+
+    def recorded(cls, state, eps, min_pts, *, version=0):
+        frozen[(eps, min_pts, version)] = state
+        return build(cls, state, eps, min_pts, version=version)
+
+    out = {"acks": [], "ack_s": [], "replies": [[] for _ in
+                                                range(SERVE_CLIENTS)]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    syncs0 = serve_snapshot.IndexSnapshot.host_syncs
+    serve_snapshot.IndexSnapshot.build = classmethod(recorded)
+    try:
+        with obs.instrumented(sync=False) as (reg, tracer):
+            t0 = time.perf_counter()
+            srv = serve.Server(boot, SERVE_TENANTS, durability_dir=workdir,
+                               checkpoint_every=4, keep_versions=16)
+            torch.cuda.synchronize()
+            out["bootstrap_s"] = time.perf_counter() - t0
+            stop, phase, errors = threading.Event(), ["writes"], []
+
+            def client(i):
+                rng = np.random.default_rng(100 + i)
+                try:
+                    while not stop.is_set():
+                        k = int(rng.integers(SERVE_PROBES[0],
+                                             SERVE_PROBES[1] + 1))
+                        name = SERVE_TENANTS[int(rng.integers(0, 2))][0]
+                        probes = serve_probes(rng, allp, k, lo, hi)
+                        ph = phase[0]
+                        t = time.perf_counter()
+                        rep = srv.query(probes, tenant=name, timeout=300)
+                        out["replies"][i].append(
+                            (name, probes, rep, time.perf_counter() - t, ph))
+                except Exception as e:          # reported by the check
+                    errors.append(repr(e))
+
+            clients = [threading.Thread(target=client, args=(i,))
+                       for i in range(SERVE_CLIENTS)]
+            t0 = time.perf_counter()
+            for c in clients:
+                c.start()
+            for i in range(SERVE_INSERTS):
+                batch = allp[n + i * SERVE_BATCH:n + (i + 1) * SERVE_BATCH]
+                t = time.perf_counter()
+                out["acks"].append(srv.insert(batch, timeout=600))
+                out["ack_s"].append(time.perf_counter() - t)
+            phase[0] = "idle"
+            time.sleep(SERVE_IDLE_S)
+            stop.set()
+            for c in clients:
+                c.join(600)
+            out["clients_s"] = time.perf_counter() - t0
+            check(not any(c.is_alive() for c in clients) and not errors,
+                  f"serve query clients failed: {errors}")
+            n_events = len(tracer.events)
+            batch = allp[n + SERVE_INSERTS * SERVE_BATCH:]
+            t = time.perf_counter()
+            srv.insert(batch, timeout=600)
+            out["ack_alone_s"] = time.perf_counter() - t
+            out["last"] = {v.name: v.store.current() for v in srv._views}
+            out["stores"] = {v.name: v.store for v in srv._views}
+            out["active"] = {v.name: v.handle.n_active for v in srv._views}
+            srv.shutdown()
+            out["syncs"] = serve_snapshot.IndexSnapshot.host_syncs - syncs0
+            out["flushes"] = sum(
+                reg.get("serve_flushes_total", reason=r).value
+                for r in ("full", "deadline", "drain")
+                if reg.get("serve_flushes_total", reason=r))
+            out["exact"] = reg.get("serve_snapshot_exact_probes_total").value
+            out["probes"] = reg.get("serve_batch_probes").sum
+            out["index_builds"] = reg.get("dispatch_index_builds_total",
+                                          index="fdbscan").value
+            out["publish_ms"] = [e["dur"] / 1e3 for e in tracer.events
+                                 if e["name"] == "serve.freeze"]
+            out["spans"] = {"clients": {}, "alone": {}}
+            for i, e in enumerate(tracer.events):
+                spans = out["spans"]["clients" if i < n_events else "alone"]
+                ms, k = spans.get(e["name"], (0.0, 0))
+                spans[e["name"]] = (ms + e["dur"] / 1e3, k + 1)
+    finally:
+        serve_snapshot.IndexSnapshot.build = classmethod(build)
+    out["frozen"] = frozen
+    torch.cuda.synchronize()
+    out["peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    # the frozen states kept above for the checks are the check's, not
+    # the server's: the peak holds them, so give their size beside it
+    out["kept_mb"] = sum(st.pts.nbytes + st.vals.nbytes
+                         for st in frozen.values()) / 2**20
+    t0 = time.perf_counter()
+    out["restored"] = serve.Server.restore(
+        SERVE_TENANTS, durability_dir=workdir, checkpoint_every=4,
+        device="cuda")
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    out["allp"], out["lo"], out["hi"] = allp, lo, hi
+    return out
+
+
+def _eager_d2(q: np.ndarray, p: np.ndarray) -> np.ndarray:
+    """float32 squared distances rounded as numpy's eager ``(diff *
+    diff).sum(-1)``: every product and sum rounded on its own."""
+    diff = (q - p).astype(np.float32)
+    out = diff[..., 0] * diff[..., 0]
+    for c in range(1, diff.shape[-1]):
+        out = out + diff[..., c] * diff[..., c]
+    return out
+
+
+def check_serve(out: dict, seen: dict) -> None:
+    """Every reply's version was published by its tenant's store and never
+    goes down for a client; sampled replies equal the same version's
+    snapshot rebuilt on the host; sampled probes of each final snapshot
+    agree with an eager float32 numpy oracle; one index build for both
+    tenants; each tenant's final frozen state is component-identical to
+    fdbscan on its active points; the restored server answers as the last
+    snapshot before shutdown."""
+    from repro_torch import serve
+    check(seen["walk"] > 0, "the walk kernel never ran on the serve path")
+    check(seen["plain_walk_runs"] == 0, f"the plain walk ran "
+          f"{seen['plain_walk_runs']} times on the serve path")
+    check(out["index_builds"] == 1, f"{out['index_builds']} index builds "
+          "for two tenants over one point set, not 1")
+    spec = {name: (eps, mp) for name, eps, mp in SERVE_TENANTS}
+    lat = {"writes": [], "idle": []}
+    by_tenant = {name: [] for name in spec}
+    for replies in out["replies"]:
+        last = {name: -1 for name in spec}
+        for name, probes, rep, s, ph in replies:
+            check(rep.tenant == name and rep.version >= last[name],
+                  f"client saw {name} v{rep.version} after v{last[name]}")
+            check(out["stores"][name].get(rep.version) is not None,
+                  f"{name} v{rep.version} was never published")
+            check(rep.labels.shape == (len(probes),)
+                  and rep.labels.dtype == np.int32
+                  and rep.counts.dtype == np.int32, "serve reply malformed")
+            last[name] = rep.version
+            lat[ph].append(s)
+            by_tenant[name].append((probes, rep))
+    host = {}
+    for name, (eps, mp) in spec.items():
+        replies = by_tenant[name]
+        check(len(replies) >= SERVE_SAMPLED, f"{name}: {len(replies)} "
+              "replies, fewer than the sample")
+        pick = np.random.default_rng(12).choice(len(replies), SERVE_SAMPLED,
+                                                replace=False)
+        for j in sorted(pick, key=lambda j: replies[j][1].version):
+            probes, rep = replies[j]
+            if (name, rep.version) not in host:
+                st = out["frozen"][(eps, mp, rep.version)]
+                host[(name, rep.version)] = serve.IndexSnapshot.build(
+                    st._replace(pts=st.pts.cpu(), vals=st.vals.cpu()), eps,
+                    mp, version=rep.version)
+            want = host[(name, rep.version)].query(probes)
+            check(all(np.array_equal(getattr(want, f), getattr(rep, f))
+                      for f in ("labels", "counts", "would_be_core")),
+                  f"{name} v{rep.version}: the card's reply differs from "
+                  "the snapshot rebuilt on the host")
+    rng = np.random.default_rng(13)
+    probes = serve_probes(rng, out["allp"], ORACLE_QUERIES, out["lo"],
+                          out["hi"])
+    for name, (eps, mp) in spec.items():
+        last = out["last"][name]
+        st = out["frozen"][(eps, mp, last.version)]
+        pts, vals = st.pts.cpu().numpy(), st.vals.cpu().numpy()
+        check(len(pts) == out["active"][name] == last.n_points,
+              f"{name}: final frozen state holds {len(pts)} points")
+        q = last.query(probes)
+        win, e2 = _x_window(pts), np.float32(np.float32(eps) ** 2)
+        order, xs = win
+        for row, p in enumerate(probes):
+            a = np.searchsorted(xs, p[0] - 2 * eps, "left")
+            b = np.searchsorted(xs, p[0] + 2 * eps, "right")
+            cand = order[a:b]
+            nb = cand[_eager_d2(p[None, :], pts[cand]) <= e2]
+            lab = int(vals[nb].min()) if len(nb) else traversal.INT_MAX
+            want = (-1 if lab == traversal.INT_MAX else lab, min(len(nb), mp))
+            check((int(q.labels[row]), int(q.counts[row])) == want
+                  and bool(q.would_be_core[row]) == (want[1] + 1 >= mp),
+                  f"{name} probe {row}: ({q.labels[row]}, {q.counts[row]})"
+                  f" != oracle {want}")
+        core = vals != traversal.INT_MAX
+        ref = repro_torch.dbscan(pts, eps, mp, algorithm="fdbscan")
+        rc = ref.core_mask.cpu().numpy()
+        validate.check_component_identical(
+            np.where(core, vals, -1), core,
+            np.where(rc, ref.labels.cpu().numpy(), -1), rc)
+        back = out["restored"].query(probes, tenant=name, timeout=300)
+        check(all(np.array_equal(getattr(q, f), getattr(back, f))
+                  for f in ("labels", "counts", "would_be_core")),
+              f"{name}: the restored server answers unlike the last "
+              "snapshot before shutdown")
+    out["restored"].shutdown(final_checkpoint=False)  # its files are gone
+    # one flush of the oracle probes alone, no batching: its time (CUDA
+    # events around 20 calls, each of which ends with its results on the
+    # host) and the device operations the profiler records in one
+    from torch.profiler import ProfilerActivity, profile
+    last = out["last"][SERVE_TENANTS[0][0]]
+    flush_ms = cuda_ms(lambda: last.query(probes), 20)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        last.query(probes)
+        torch.cuda.synchronize()
+    ops = sum(e.device_type == torch.autograd.DeviceType.CUDA
+              for e in prof.events())
+
+    def ms(xs, q):
+        return f"{np.quantile(np.array(xs) * 1e3, q):.1f}"
+
+    n_replies = sum(len(r) for r in out["replies"])
+    acks = out["acks"]
+    say("serve", dataset=STREAM[0], n=STREAM[1],
+        tenants=",".join(f"{n_}:{e}:{m}" for n_, e, m in SERVE_TENANTS),
+        inserts=f"{len(acks)}x{SERVE_BATCH}",
+        bootstrap_s=f"{out['bootstrap_s']:.3f}",
+        publish_ms_p50=f"{np.median(out['publish_ms']):.1f}",
+        publish_ms_max=f"{max(out['publish_ms']):.1f}",
+        publishes=len(out["publish_ms"]),
+        insert_ack_ms_p50=ms(out["ack_s"], 0.5),
+        insert_ack_ms_max=f"{max(out['ack_s']) * 1e3:.1f}",
+        insert_ack_ms_alone=f"{out['ack_alone_s'] * 1e3:.1f}",
+        query_ms_p50_writes=ms(lat["writes"], 0.5),
+        query_ms_p99_writes=ms(lat["writes"], 0.99),
+        query_ms_p50_idle=ms(lat["idle"], 0.5),
+        query_ms_p99_idle=ms(lat["idle"], 0.99),
+        replies=n_replies, replies_writes=len(lat["writes"]),
+        probes_per_s=f"{out['probes'] / out['clients_s']:.0f}",
+        exact_probe_share=f"{out['exact'] / out['probes']:.4f}",
+        flushes=int(out["flushes"]),
+        host_syncs_per_flush=f"{out['syncs'] / out['flushes']:.2f}",
+        flush_ms=f"{flush_ms:.2f}", device_ops_per_flush=ops,
+        walk_launches=seen["walk"], plain_walks=seen["plain_walk_runs"],
+        peak_mb_over_start=f"{out['peak_mb']:.0f}",
+        frozen_kept_mb=f"{out['kept_mb']:.0f}",
+        restore_s=f"{out['restore_s']:.3f}")
+    # where the writer's time goes (host clock, spans nest, no sync):
+    # the apply of a batch to both tenants, each tenant's insert, its
+    # repair and compaction, the publishes; with the query clients running
+    # and for the last batch, alone
+    for when, spans in out["spans"].items():
+        say("serve-split", writer=when, **{
+            f"{name}_ms": f"{ms:.1f}x{k}" for name, (ms, k) in sorted(
+                spans.items())
+            if name in ("serve.apply", "serve.publish", "serve.freeze",
+                        "stream.insert", "stream.repair", "stream.compact",
+                        "stream.merge", "serve.bootstrap")})
+    say("check", path="serve", vs="published versions + host rebuild + "
+        "numpy oracle + fdbscan + restore", ok=True,
+        sampled_replies=SERVE_SAMPLED * len(spec), host_rebuilds=len(host),
+        oracle_probes=ORACLE_QUERIES * len(spec),
+        versions=",".join(f"{k}:{v.version}"
+                          for k, v in out["last"].items()))
+
+
+def phase_serve_cli(workdir: str) -> None:
+    """The serving CLI on the card in a process of its own: server mode
+    with two tenants, durability and --validate, then --restore."""
+    dset, _, _, _ = STREAM
+    tenants = ",".join(f"{n}:{e}:{m}" for n, e, m in SERVE_TENANTS)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    for extra in ([], ["--restore"]):
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+               "--dataset", dset, "--n", str(SERVE_CLI_N),
+               "--tenants", tenants, "--device", "cuda", "--validate",
+               "--durability-dir", workdir,
+               "--steps", str(SERVE_CLI_STEPS)] + extra
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+        lines = run.stdout.strip().splitlines()
+        check(run.returncode == 0, f"serve CLI {extra} exited "
+              f"{run.returncode}:\n{run.stdout[-2000:]}{run.stderr[-4000:]}")
+        check(any("validation of 2 tenants" in ln for ln in lines),
+              f"serve CLI {extra} printed no validation line")
+        for ln in lines:
+            print(f"[serve-cli] {ln}", flush=True)
+        say("serve-cli", mode="restore" if extra else "bootstrap",
+            n=SERVE_CLI_N, rc=run.returncode,
+            seconds=f"{time.perf_counter() - t0:.1f}", ok=True)
+
+
 def timed(phase: str, fn, *args):
     """``fn(*args)``, with a line giving its wall time."""
     t0 = time.perf_counter()
@@ -1983,6 +2314,16 @@ def main() -> None:
     timed("stream-check", check_stream, st, seen_st)
     del st
     timed("stream-parity", phase_stream_parity)
+
+    reset_counts()
+    with tempfile.TemporaryDirectory() as workdir:
+        sv = timed("serve", run_serve, workdir)
+    seen_sv = counts()
+    say("counts", path="serve", **seen_sv)
+    timed("serve-check", check_serve, sv, seen_sv)
+    del sv
+    with tempfile.TemporaryDirectory() as workdir:
+        timed("serve-cli", phase_serve_cli, workdir)
     timed("degenerate", phase_degenerate)
     if args.profile:
         phase_profile(runs)
@@ -1994,7 +2335,8 @@ def main() -> None:
     kernels = [
         dict(name="walk", route="cuda", source=f"{csrc}/walk.cu",
              replaces="src/repro/kernels/traverse.py:98",
-             launches=seen["walk"] + seen_st["walk"], **walk_t),
+             launches=seen["walk"] + seen_st["walk"] + seen_sv["walk"],
+             **walk_t),
         dict(name="pairwise_count", route="cuda",
              source=f"{csrc}/pairwise.cu",
              replaces="src/repro/kernels/pairwise.py:67",

@@ -356,17 +356,21 @@ class StreamingDBSCAN:
     def freeze_view(self):
         """Export the active state for an immutable serving snapshot.
 
-        The reference returns a ``repro.serve.snapshot.FrozenState``; the
-        port's serving plane (``repro_torch.serve``) is not written yet.
-
-        Raises:
-            NotImplementedError: always, until the serving plane is ported
-                (ROADMAP.md, Queue 1, the ``serve/`` item).
+        Returns a ``repro_torch.serve.snapshot.FrozenState``: the active
+        points with their serving values (core rows carry their
+        component-min label, non-core rows ``INT_MAX``; int64), plus the
+        stream watermark, as Python ints. The tensors are copies on the
+        handle's device (boolean-mask indexing never returns a view): the
+        writer updates ``_labels``, ``_core`` and ``_tombstone`` in place,
+        and a published snapshot must not change with them. Pure read;
+        never touches the tiers.
         """
-        raise NotImplementedError(
-            "freeze_view needs the serving plane's FrozenState, which the "
-            "port does not have yet: ROADMAP.md, Queue 1, serve/ "
-            "(snapshot, batching, admission, tenants, server)")
+        from repro_torch.serve.snapshot import FrozenState
+        alive = ~self._tombstone
+        vals = torch.where(self._core, self._labels.to(torch.int64), INT_MAX)
+        return FrozenState(pts=self._pts[alive], vals=vals[alive],
+                           watermark=self.n_points,
+                           n_tombstoned=int(self._n_tomb))
 
     def stream_slice(self, lo: int, hi: int) -> np.ndarray:
         """Rows ``[lo, hi)`` of the raw insert stream (tombstoned rows

@@ -5,10 +5,13 @@ Each case runs a child process — this file, run as a script — that drives
 a deterministic op schedule (inserts, deletes and an insert-order expiry
 against a handle with a WAL and a checkpoint written at every merge; a
 merge every third insert; a small ``buffer_max`` so tiers seal and
-cascade) and arms one crash point of ``durability.FAULT_POINTS``. The
-armed barrier ends the child with ``os._exit(137)``: no cleanup, no
-flushing, as ``kill -9``. After every op that returned (an *acknowledged*
-op) the child appends ``op n_points n_active`` to an fsync'd ack file.
+cascade) and arms one crash point of ``durability.FAULT_POINTS``. After
+every op the child publishes the next serving snapshot of the handle
+(``repro_torch.serve.TenantView.publish``, the serving plane's
+``mid-publish`` barrier). The armed barrier ends the child with
+``os._exit(137)``: no cleanup, no flushing, as ``kill -9``. After every op
+that returned and published (an *acknowledged* op) the child appends
+``op n_points n_active`` to an fsync'd ack file.
 The parent then recovers from the files left behind and holds the port
 to the durability contract:
 
@@ -20,10 +23,11 @@ to the durability contract:
     exactly the surviving points, and stays so after the rest of the
     schedule runs in the recovered handle.
 
-Every fault point of the streaming index is covered (``mid-publish``
-belongs to the serving plane). The child imports the port alone — no
-JAX, not the reference package — and checks that it did; the schedule
-mirrors ``tests/faults.py``'s, which drives the reference.
+Every fault point is covered, the serving plane's ``mid-publish``
+included (the server's own crash child is in
+``tests/test_torch_serve_linearizability.py``). The child imports the
+port alone — no JAX, not the reference package — and checks that it did;
+the schedule mirrors ``tests/faults.py``'s, which drives the reference.
 """
 from __future__ import annotations
 
@@ -52,7 +56,8 @@ KILL_MATRIX = [
     ("pre-delete", 1),           # first delete never durable
     ("wal-durable-delete", 2),   # the expiry record, durable, unapplied
     ("mid-compaction", 1),       # tier cascade in flight: in memory only
-]
+    ("mid-publish", 4),          # the third insert applied and durable,
+]                                # its snapshot never swapped in
 
 
 def stream_points():
@@ -121,6 +126,7 @@ def _apply(h, op, pts):
 # --------------------------------------------------------------------- #
 
 def child_main(workdir: str, point: str | None, at: int) -> int:
+    from repro_torch.serve import TenantSpec, TenantView
     from repro_torch.stream import StreamingDBSCAN, durability
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -133,11 +139,13 @@ def child_main(workdir: str, point: str | None, at: int) -> int:
                         checkpoint_path=ckpt,
                         checkpoint_every=CONFIG["checkpoint_every"],
                         buffer_max=CONFIG["buffer_max"], device="cpu")
+    view = TenantView(TenantSpec("t", CONFIG["eps"], CONFIG["min_pts"]), h)
     durability.arm_fault(point, at=at)
     n_inserts = 0
     with open(ack_path, "a") as acks:
         for i, op in enumerate(op_schedule()):
             _apply(h, op, pts)          # may os._exit(137) at the barrier
+            view.publish()              # the mid-publish barrier
             acks.write(f"{i} {h.n_points} {h.n_active}\n")
             acks.flush()
             os.fsync(acks.fileno())
@@ -265,8 +273,7 @@ def test_kill_and_recover(children, point, at):
 
 
 def test_matrix_covers_every_stream_fault_point():
-    assert ({p for p, _ in KILL_MATRIX}
-            == set(durability.FAULT_POINTS) - {"mid-publish"})
+    assert {p for p, _ in KILL_MATRIX} == set(durability.FAULT_POINTS)
 
 
 @pytest.mark.parametrize("tail", [

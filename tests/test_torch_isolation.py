@@ -1,9 +1,10 @@
 """The port stands alone: no module of ``src/repro_torch`` (the
-``stream`` package included) and not ``chip_smoke.py`` imports JAX or the
-reference package, importing and running the port (clustering, neighbor
-queries, a streaming handle with a WAL, a checkpoint and a restore, under
-the port's own collectors) loads neither, and without a CUDA device the
-entry points refuse to run unless the caller asks for the CPU."""
+``stream``, ``serve`` and ``launch`` packages included) and not
+``chip_smoke.py`` imports JAX or the reference package, importing and
+running the port (clustering, neighbor queries, a streaming handle with a
+WAL, a checkpoint and a restore, a two-tenant server, the serving CLI,
+under the port's own collectors) loads neither, and without a CUDA device
+the entry points refuse to run unless the caller asks for the CPU."""
 import ast
 import os
 import subprocess
@@ -90,6 +91,24 @@ def test_running_the_port_loads_neither_jax_nor_the_reference():
                 assert (back.snapshot().labels == snap.labels).all()
         assert q.labels.shape == (10,) and snap.labels.shape == (297,)
         assert reg.get("stream_inserts_total").value == 2.0
+        from repro_torch import serve
+        from repro_torch.launch import serve as cli
+        with obs.instrumented() as (reg, tracer):
+            with tempfile.TemporaryDirectory() as tmp:
+                with serve.Server(pts[:200], [("a", 0.05, 5), ("b", 0.1, 3)],
+                                  durability_dir=tmp, device="cpu") as srv:
+                    ack = srv.insert(pts[200:], timeout=60)
+                    rep = srv.query(pts[:10], tenant="b", timeout=60)
+                back = serve.Server.restore([("a", 0.05, 5), ("b", 0.1, 3)],
+                                            durability_dir=tmp, device="cpu")
+                again = back.query(pts[:10], tenant="b", timeout=60)
+                back.shutdown()
+        assert ack.watermark == 300 and rep.version == 1
+        assert (again.labels == rep.labels).all()
+        assert reg.get("serve_snapshot_publishes_total", tenant="a")
+        stats = cli.main(["--device", "cpu", "--n", "400", "--steps", "4",
+                          "--tenants", "a:0.05:5,b:0.1:3", "--validate"])
+        assert stats["steps"] == 4
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not bad, bad
@@ -97,7 +116,7 @@ def test_running_the_port_loads_neither_jax_nor_the_reference():
     """)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
     assert "isolated" in out.stdout
 
@@ -127,5 +146,20 @@ def test_no_cuda_and_no_device_raises(monkeypatch):
     from repro_torch.stream import StreamingDBSCAN
     with pytest.raises(RuntimeError, match="device='cpu'"):
         StreamingDBSCAN(None, 0.1, 3)
+    from repro_torch import serve
+    from repro_torch.launch import serve as cli
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.Server(pts, [("a", 0.1, 3)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.build_views(pts, [("a", 0.1, 3)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.restore_views([("a", 0.1, 3)], durability_dir="unused")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.IndexSnapshot(pts, np.zeros(50, np.int64), 0.1, 3)
+    with pytest.raises(SystemExit) as ei:
+        cli.main(["--n", "64"])
+    assert ei.value.code == 2
+    snap = serve.freeze(repro_torch.stream_handle(pts, 0.1, 3, device="cpu"))
+    assert snap.device.type == "cpu" and snap.query(pts).labels.shape == (50,)
     assert repro_torch.dbscan(pts, 0.1, 3, device="cpu").labels.shape == (50,)
     assert repro_torch.stream_handle(pts, 0.1, 3, device="cpu").n_points == 50

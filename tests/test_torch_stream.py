@@ -10,7 +10,8 @@ counts, core mask, labels and tombstones are byte-equal, and so are
 the repair-sweep, merge, compaction and tier counters, every level's
 gids, the ops' return values, the ``QueryResult`` fields and the
 snapshots. Also here: the brute counts on boundary-grid data, the host helpers
-against their numpy twins, a padded level's index, and ``freeze_view``.
+against their numpy twins, a padded level's index, and ``freeze_view``
+against the reference's.
 The entry points (a cold start under a window, ``dbscan``'s ``stream``
 backend, ``tenant_handles``, ``obs``) are in
 ``tests/test_torch_stream_api.py``.
@@ -266,6 +267,19 @@ def test_level_build_matches_reference(d):
 
 
 def test_freeze_view_raises():
-    h = _port(BLOBS[:100], EPS_BLOBS, MP_BLOBS)
-    with pytest.raises(NotImplementedError, match="serve"):
-        h.freeze_view()
+    """``freeze_view`` raised until the serving plane was ported (the
+    name is kept); it now returns the reference's ``FrozenState``: the
+    active points and int64 serving values, byte for byte, as copies."""
+    ref, port = (make(BLOBS[:N_BOOT], EPS_BLOBS, MP_BLOBS)
+                 for make in (JStream, _port))
+    for h in (ref, port):
+        h.delete(np.arange(0, N_BOOT, 5))
+    a, b = ref.freeze_view(), port.freeze_view()
+    assert type(b).__name__ == "FrozenState" and b._fields == a._fields
+    for x, y in ((a.pts, b.pts), (a.vals, b.vals)):
+        assert x.dtype == y.numpy().dtype
+        np.testing.assert_array_equal(x, y.numpy())
+    assert (b.watermark, b.n_tombstoned) == (a.watermark, a.n_tombstoned)
+    assert type(b.watermark) is int and type(b.n_tombstoned) is int
+    b.vals[:] = -5                          # a copy: the handle is intact
+    assert (port.freeze_view().vals.numpy() == a.vals).all()
