@@ -4,8 +4,9 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version on the card
-(exact equality; the tile kernels at widths from 1 to 64; the k-NN walk at
-k = 1 to 100), drives the port's main paths at full size — clustering,
+(exact equality; the walk at every lane tile and lane order of the tuner;
+the tile kernels at widths from 1 to 64; the k-NN walk at k = 1 to 100),
+drives the port's main paths at full size — clustering,
 ``repro_torch.dbscan(..., algorithm="auto")``, on two scenarios and on the
 tiled path at d = 2, 17 and 64; neighbor queries, ``repro_torch.neighbors``
 ``knn`` and ``neighbor_count``, on both scenarios; the streaming index,
@@ -14,7 +15,10 @@ window, a WAL and a checkpoint, through inserts, deletes, a merge, a
 checkpoint, queries, a snapshot and a restore; the serving plane,
 ``repro_torch.serve.Server``, with two tenants over the same set under
 concurrent inserts and queries, then a restore, and its CLI,
-``python -m repro_torch.launch.serve`` — checks the results
+``python -m repro_torch.launch.serve``; the tuned ``pallas-tree`` path on
+both scenarios under ``REPRO_TUNE`` = off, heuristic and search; the
+clustering CLI, ``python -m repro_torch.launch.cluster``, and the
+``gdbscan`` baseline — checks the results
 against a second backend and numpy oracles, shows that every walk and tile
 of each path ran as a kernel, holds the streaming index on the card
 against the same index on the host at small sizes, and validates the
@@ -152,6 +156,19 @@ SERVE_CLIENTS, SERVE_PROBES, SERVE_IDLE_S = 2, (64, 512), 3.0
 SERVE_SAMPLED = 64
 # the serving CLI (python -m repro_torch.launch.serve) on the card
 SERVE_CLI_N, SERVE_CLI_STEPS = 262_144, 20
+# the reference's golden scenarios (tests/golden/make_golden.py):
+# (dataset, n, eps, min_pts); the walk kernel's uncapped counts are held
+# against the golden file's
+GOLDEN_SCENARIOS = [("ngsim_like", 800, 0.01, 5),
+                    ("portotaxi_like", 800, 0.02, 5),
+                    ("road3d_like", 800, 0.01, 5),
+                    ("hacc_like", 800, 0.05, 5),
+                    ("blobs", 800, 0.05, 8)]
+# the clustering CLI (python -m repro_torch.launch.cluster) on the card:
+# (dataset, n, eps, min_pts), eps scaled like WALK_CHECK's; gdbscan (its
+# n x n adjacency) at (n, eps, min_pts) on boundary-separated 3-D points
+CLUSTER_CLI = ("hacc_like", 262_144, 0.0119, 5)
+CLUSTER_GDBSCAN = (4096, 0.08, 5)
 
 
 def check(ok: bool, what: str) -> None:
@@ -367,6 +384,13 @@ def phase_environment() -> None:
         say(f"ptxas:{name}", kernels=len(regs),
             max_registers=max(regs.values()), with_spills=spills)
         say(f"ptxas-registers:{name}", **regs)
+        if name == "walk":
+            # a body for each bound of 64 to 512 threads a block; the
+            # block of 128 (the default lane tile) keeps its registers
+            check(len(report) == 40, f"walk: {len(report)} bodies compiled, "
+                                     "not 40 (10 bodies x 4 bounds)")
+            say("ptxas-walk-b128", **{e[:-5]: r for e, r in regs.items()
+                                      if e.endswith("_b128")})
         if name == "knn":
             # each k-NN body: registers, stack frame and spill stores; a
             # register-list body with a stack frame or spills has moved its
@@ -392,13 +416,14 @@ def ptxas_report(log: str) -> dict:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-            walk = re.search(r"walk_kernelILi(\d)E([if])Li(\d)E", entry)
+            walk = re.search(r"walk_kernelILi(\d)E([if])Li(\d)ELi(\d+)E",
+                             entry)
             tile = re.search(r"\d([a-z]+_kernel)ILi(\d)E", entry)
             knn = re.search(r"knn_kernelILi(\d)ELi(\d+)E", entry)
             plain = re.search(r"\d([a-z][a-z_]*_kernel)", entry)
-            if walk:        # walk_kernel<KIND, V, D>
+            if walk:        # walk_kernel<KIND, V, D, MAXB>
                 entry = (f"kind{walk[1]}_{'f32' if walk[2] == 'f' else 'i32'}"
-                         f"_d{walk[3]}")
+                         f"_d{walk[3]}_b{walk[4]}")
             elif knn:       # knn_kernel<D, CAP>; CAP 0: list in memory
                 entry = (f"knn_d{knn[1]}_"
                          f"{'mem' if knn[2] == '0' else 'cap' + knn[2]}")
@@ -559,7 +584,7 @@ def phase_walk_check() -> float:
             err = max(err, e)
             say("walk-check", dataset=dset, n=n, d=segs.pts.shape[1],
                 kind=name, lanes=int(k.iters.shape[0]),
-                threads=kt.walk.last_grid * kt.BLOCK,
+                threads=kt.walk.last_grid * kt.walk.last_block,
                 evals=int(k.evals.sum()), iters=int(k.iters.sum()),
                 max_abs_err=e)
     for dset, n, eps, mp in WALK_SPEC:
@@ -621,13 +646,29 @@ def phase_walk_check() -> float:
 WALK_TIMED = {0: "first pass", 1: "first sweep"}
 
 
+def _kernel_walk(args, kw):
+    """A walk of the main path as it ran: through its phase's engine (the
+    ``engine`` keyword of ``fdbscan._walk``), by default the walk entry."""
+    rest = {key: v for key, v in kw.items() if key != "engine"}
+    return (kw.get("engine") or kt.traverse)(*args, **rest)
+
+
+def _plain_kw(kw) -> dict:
+    """The keyword arguments of a main-path walk that the plain engine
+    takes (no engine, packed index, block or lane order: none changes an
+    output)."""
+    return {key: v for key, v in kw.items()
+            if key not in ("engine", "walk_index", "lane_tile", "reorder",
+                           "depth_rank", "unroll")}
+
+
 def _walk_timing(dset, label, args, kw, plain_ms: float) -> dict:
     """Kernel time, bound and counters of one of the main path's walks,
     on its own index, lanes and visitor."""
     tree, segs, pred, cb = args
-    ms = cuda_ms(lambda: kt.traverse(*args, **kw), 5)
+    ms = cuda_ms(lambda: _kernel_walk(args, kw), 5)
     n, d = segs.pts.shape
-    k = kt.traverse(*args, **kw)
+    k = _kernel_walk(args, kw)
     L = int(k.iters.shape[0])
     in_bytes = nbytes(segs.pts, segs.seg_start, segs.seg_end, segs.dense_seg,
                       tree.left, tree.miss, tree.box_lo, tree.box_hi,
@@ -639,7 +680,7 @@ def _walk_timing(dset, label, args, kw, plain_ms: float) -> dict:
     lane_bytes = L * (4 * d + 4 * 3 + 1 * 2 + 4 * 2) + L * 4 * 4
     # at unroll 1 every loop trip is one work unit, so trips minus member
     # tests counts the node visits this data needs
-    k1 = kt.traverse(*args, **{**kw, "unroll": 1})
+    k1 = _kernel_walk(args, {**kw, "unroll": 1})
     check(bool(torch.equal(k1.evals, k.evals)), "walk: evals depend on unroll")
     evals = float(k.evals.sum())
     visits = float(k1.iters.sum()) - evals
@@ -651,7 +692,7 @@ def _walk_timing(dset, label, args, kw, plain_ms: float) -> dict:
         kind=type(cb).__name__, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.2f}",
         bound_ms=f"{b_ms:.5f}", bound_by=b_by, member_tests=int(evals),
         node_visits=int(visits), bytes=in_bytes + lane_bytes,
-        grid=kt.walk.last_grid, block=kt.BLOCK)
+        grid=kt.walk.last_grid, block=kt.walk.last_block)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
 
@@ -679,14 +720,15 @@ def phase_main_walk_check(runs) -> tuple[float, dict]:
             nonlocal err
             i = len(calls)
             calls.append(i)
-            k = kt.traverse(*args, **kw)
+            k = walk_fn(*args, **kw)
             if i not in picks:
                 return k
-            plain_kw = {key: v for key, v in kw.items() if key != "walk_index"}
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            p = traversal.traverse(*args, unroll=kt.PALLAS_UNROLL, **plain_kw)
+            p = traversal.traverse(*args,
+                                   unroll=kw.get("unroll", kt.PALLAS_UNROLL),
+                                   **_plain_kw(kw))
             end.record()
             torch.cuda.synchronize()
             name = type(args[3]).__name__
@@ -2268,6 +2310,335 @@ def phase_serve_cli(workdir: str) -> None:
             seconds=f"{time.perf_counter() - t0:.1f}", ok=True)
 
 
+# --------------------------------------------------------------------- #
+# the tuner: lane tiles and lane orders on the walk kernel              #
+# --------------------------------------------------------------------- #
+
+def _golden():
+    return np.load(os.path.join(ROOT, "tests", "golden", "golden.npz"))
+
+
+def _tune_cases(segs, tree, eps, mp):
+    """The clustering phases' walk shapes (:func:`_walk_cases`: the fused
+    first pass over every point, a split sweep with a tail of inert lanes,
+    the count pass over loose points) and two external batches (uniform
+    points in the index's box, a count and a min-label walk)."""
+    cases = _walk_cases(segs, tree, eps, mp)
+    n, d = segs.pts.shape
+    g = torch.Generator(device="cpu").manual_seed(4)
+    lo, hi = segs.pts.amin(0), segs.pts.amax(0)
+    q = lo + (hi - lo) * torch.rand(4099, d, generator=g).to(DEV)
+    ext = traversal.intersects(traversal.sphere(eps), pts=q)
+    vals = torch.arange(n, dtype=torch.int32, device=DEV)
+    gather = (torch.rand(n, generator=g) < 0.5).to(DEV)
+    cases.append(("count external", ext, traversal.CountVisitor(cap=mp), {}))
+    cases.append(("minlabel external", ext,
+                  traversal.MinLabelVisitor(vals, gather), {}))
+    return cases
+
+
+def _same_trace(name, a, b) -> float:
+    e = max_abs_err([(a.acc, b.acc), (a.hits, b.hits), (a.evals, b.evals),
+                     (a.iters, b.iters)])
+    check(e == 0.0, f"{name}: differs from the pinned launch "
+                    f"(max abs err {e})")
+    return e
+
+
+def phase_tune_check() -> float:
+    """The walk kernel at every lane tile of ``tune.TUNE_LANE_TILES`` under
+    every lane order (none, morton, depth by the first pass's trips),
+    exact against the pinned launch (block 128, launch order): ``acc``,
+    ``hits``, ``evals`` and ``iters`` (same unroll), for the three kinds on
+    the clustering phases' lanes (inert lanes included) and on external
+    lanes, on the 262,144-point densebox indexes of :func:`phase_walk_check`.
+    Then the reference's golden uncapped counts at n = 800 through the
+    kernel (``traversal.count_neighbors`` and every lane tile in Morton
+    order), and the traversal helpers on the card against the same helpers
+    on a host copy of the index (the plain engine)."""
+    from repro_torch.core import tune
+    err = 0.0
+    for dset, n, eps, mp in WALK_CHECK:
+        segs, tree, index = _index(dset, n, eps, mp)
+        cases = _tune_cases(segs, tree, eps, mp)
+        rank = None
+        for name, pred, cb, kw in cases:
+            pinned = kt.traverse(tree, segs, pred, cb, walk_index=index,
+                                 **kw)
+            if rank is None:        # the first pass: every point, in order
+                rank = pinned.iters
+            times = {}
+            for lane_tile in tune.TUNE_LANE_TILES:
+                for policy in ("none", "morton", "depth"):
+                    before = kt.walk.launches
+                    k = kt.traverse(tree, segs, pred, cb, walk_index=index,
+                                    lane_tile=lane_tile, reorder=policy,
+                                    depth_rank=rank, **kw)
+                    torch.cuda.synchronize()
+                    check(kt.walk.last_block == lane_tile
+                          and kt.walk.launches == before + 1,
+                          f"tune-check {name}: block {kt.walk.last_block}")
+                    err = max(err, _same_trace(
+                        f"tune-check {dset} {name} {lane_tile}/{policy}",
+                        pinned, k))
+                    times[f"{lane_tile}/{policy}"] = cuda_ms(
+                        lambda: kt.traverse(tree, segs, pred, cb,
+                                            walk_index=index,
+                                            lane_tile=lane_tile,
+                                            reorder=policy, depth_rank=rank,
+                                            **kw), 3)
+            say("tune-check", dataset=dset, n=n, walk=repr(name),
+                lanes=int(pinned.iters.shape[0]),
+                inert=int((pinned.iters == 0).sum()), max_abs_err=err,
+                **{f"ms_{key}": f"{v:.3f}" for key, v in times.items()})
+        del segs, tree, index, cases, rank
+    golden = _golden()
+    counted = 0
+    for dset, n, eps, mp in GOLDEN_SCENARIOS:
+        p = repro_torch.plan(pointclouds.load(dset, n), eps, mp,
+                             algorithm="fdbscan", device=DEV)
+        order = p.segs.order.long().cpu().numpy()
+        before = (kt.walk.launches, traversal.traverse.runs)
+        got = traversal.count_neighbors(p.tree, p.segs, eps,
+                                        traversal.INT_MAX,
+                                        walk_index=p.walk_index)
+        counts = np.zeros(n, np.int64)
+        counts[order] = got.cpu().numpy()
+        check(np.array_equal(counts, golden[f"{dset}/counts"]),
+              f"golden counts {dset}: the walk kernel differs")
+        for lane_tile in tune.TUNE_LANE_TILES:
+            k = kt.traverse(p.tree, p.segs,
+                            traversal.intersects(traversal.sphere(eps)),
+                            traversal.CountVisitor(cap=traversal.INT_MAX),
+                            lane_tile=lane_tile, reorder="morton",
+                            walk_index=p.walk_index)
+            counts[order] = k.acc.cpu().numpy()
+            check(np.array_equal(counts, golden[f"{dset}/counts"]),
+                  f"golden counts {dset}: lane tile {lane_tile} differs")
+        check(kt.walk.launches == before[0] + 1 + len(tune.TUNE_LANE_TILES)
+              and traversal.traverse.runs == before[1],
+              f"golden counts {dset}: not every walk was the kernel")
+        counted += 1
+        if dset == "hacc_like":
+            err = max(err, _helpers_against_host(p, eps, mp))
+    say("tune-check", golden_counts=counted, lane_tiles=len(
+        tune.TUNE_LANE_TILES), helpers="count_neighbors_with_work,"
+        "minlabel_sweep,fused_count_minlabel,border_gather", max_abs_err=err)
+    return err
+
+
+def _helpers_against_host(p, eps: float, mp: int) -> float:
+    """The traversal helpers on the card (walk kernel, packed index from
+    the plan and packed by the helper itself) against the same helpers on
+    a host copy of the index (plain engine), exact."""
+    segs_h = grid.Segments(*(x.cpu() for x in p.segs))
+    tree_h = lbvh.Tree(*(x.cpu() for x in p.tree))
+    n = p.segs.n_points
+    g = torch.Generator(device="cpu").manual_seed(6)
+    labels = torch.randperm(n, generator=g).to(torch.int32)
+    gather = torch.rand(n, generator=g) < 0.6
+    active = torch.rand(n, generator=g) < 0.7
+    err = 0.0
+    before = (kt.walk.launches, traversal.traverse.runs)
+    for walk_index in (p.walk_index, None):
+        on = dict(walk_index=walk_index)
+        pairs = [
+            (traversal.count_neighbors_with_work(
+                p.tree, p.segs, eps, mp, active.to(DEV), **on),
+             traversal.count_neighbors_with_work(tree_h, segs_h, eps, mp,
+                                                 active)),
+            (traversal.minlabel_sweep(p.tree, p.segs, eps, labels.to(DEV),
+                                      gather.to(DEV), active.to(DEV), **on),
+             traversal.minlabel_sweep(tree_h, segs_h, eps, labels, gather,
+                                      active)),
+            (traversal.border_gather(p.tree, p.segs, eps, labels.to(DEV),
+                                     gather.to(DEV), active.to(DEV), **on),
+             traversal.border_gather(tree_h, segs_h, eps, labels, gather,
+                                     active)),
+        ]
+        fk = traversal.fused_count_minlabel(p.tree, p.segs, eps,
+                                            labels.to(DEV), cap=mp - 1, **on)
+        fh = traversal.fused_count_minlabel(
+            tree_h, segs_h, eps, labels, cap=mp - 1,
+            traverse_fn=lambda *a, **k: traversal.traverse(
+                *a, unroll=kt.PALLAS_UNROLL, **k))
+        pairs.append(((fk.acc, fk.hits, fk.evals, fk.iters),
+                      (fh.acc, fh.hits, fh.evals, fh.iters)))
+        for dev_out, host_out in pairs:
+            e = max_abs_err([(a.cpu(), b) for a, b in zip(dev_out,
+                                                           host_out)])
+            check(e == 0.0, f"traversal helper on the card differs from the "
+                            f"host's (max abs err {e})")
+            err = max(err, e)
+    host_runs = traversal.traverse.runs - before[1]
+    check(kt.walk.launches - before[0] == 8 and host_runs == 8,
+          f"helpers: {kt.walk.launches - before[0]} kernel launches, "
+          f"{host_runs} plain runs (8 each expected: 4 on the card, 4 on "
+          f"the host, twice)")
+    return err
+
+
+def phase_tune(runs) -> dict:
+    """Both full-size scenarios through ``dbscan(algorithm="pallas-tree")``
+    under ``REPRO_TUNE`` = off, heuristic and search, on one index each:
+    labels, core mask and ``n_sweeps`` byte-equal to the pinned run, no
+    plain walk, one measured search for two plans with one ``stats_key``
+    (the set and a permuted copy), and a CUDA tuner state forced to the
+    plain engine raises. Prints each mode's decision, the search time and
+    the warm ``cluster_ms`` (CUDA events; medians of 5, the modes in
+    turns). The counts of the runs are read by the caller."""
+    from repro_torch.core import dispatch, tune
+    out = {}
+    prev = os.environ.get("REPRO_TUNE")
+    try:
+        for dset, n, eps, mp, pts, _, res0, _ in runs:
+            if n < 2**20:
+                continue
+            plans = {}
+            for mode in ("off", "heuristic"):
+                os.environ["REPRO_TUNE"] = mode
+                dispatch.clear_cache()
+                plans[mode] = repro_torch.plan(pts, eps, mp,
+                                               algorithm="pallas-tree",
+                                               device=DEV)
+            os.environ["REPRO_TUNE"] = "search"
+            dispatch.clear_cache()
+            with obs.instrumented() as (reg, _):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                plans["search"] = repro_torch.plan(pts, eps, mp,
+                                                   algorithm="pallas-tree",
+                                                   device=DEV)
+                torch.cuda.synchronize()
+                search_s = time.perf_counter() - t0
+                perm = np.random.default_rng(1).permutation(n)
+                p2 = repro_torch.plan(pts[perm], eps, mp,
+                                      algorithm="pallas-tree", device=DEV)
+            searches = reg.get("tune_searches_total").value
+            check(searches == 1.0 and p2.tune.config
+                  == plans["search"].tune.config,
+                  f"{dset}: {searches} searches for two plans with one "
+                  f"stats_key")
+            del p2
+            dispatch.clear_cache()
+            pinned = None
+            samples = {m: [] for m in plans}
+            for rep in range(6):            # a cold run, then 5 warm
+                for mode, p in plans.items():
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    res = repro_torch.dbscan(pts, eps, mp, query_plan=p)
+                    end.record()
+                    torch.cuda.synchronize()
+                    if rep:
+                        samples[mode].append(start.elapsed_time(end))
+                    if pinned is None:
+                        pinned = res
+                    check(torch.equal(res.labels, pinned.labels)
+                          and torch.equal(res.core_mask, pinned.core_mask)
+                          and res.n_sweeps == pinned.n_sweeps
+                          and res.backend == "pallas-tree",
+                          f"{dset} REPRO_TUNE={mode}: differs from the "
+                          f"pinned run")
+            check(same_core_partition(pinned, res0),
+                  f"{dset}: the pinned run differs from the main path's")
+            ms = {m: float(np.median(v)) for m, v in samples.items()}
+            for mode, p in plans.items():
+                d = p.tune.describe()
+                say("tune", dataset=dset, mode=mode,
+                    cluster_ms=f"{ms[mode]:.2f}",
+                    samples="/".join(f"{v:.1f}" for v in samples[mode]),
+                    config=json.dumps({k: d[k] for k in
+                                       ("source", "calibrated",
+                                        "first_pass", "sweep", "border")},
+                                      separators=(",", ":")))
+            say("tune-search", dataset=dset, seconds=f"{search_s:.3f}",
+                searches=int(searches),
+                timings_ms=json.dumps({ph: {c: round(t * 1e3, 3)
+                                            for c, t in v.items()}
+                                       for ph, v in plans["search"].tune
+                                       .info["timings"].items()},
+                                      separators=(",", ":")))
+            out[dset] = ms
+            # a CUDA tuner state forced to the plain engine raises (and
+            # runs no plain walk)
+            forced = tune.TuneState(tune.TunedConfig(
+                first_pass=tune.PhaseConfig("reference")))
+            p = plans["off"]
+            runs_before = traversal.traverse.runs
+            try:
+                fdbscan.cluster_from_index(p.segs, p.tree, eps, mp,
+                                           backend="pallas-tree",
+                                           tune=forced,
+                                           walk_index=p.walk_index)
+                raised = False
+            except ValueError:
+                raised = True
+            check(raised and traversal.traverse.runs == runs_before,
+                  f"{dset}: a CUDA phase forced to the plain engine ran")
+            del plans, pinned, res
+    finally:
+        if prev is None:
+            os.environ.pop("REPRO_TUNE", None)
+        else:
+            os.environ["REPRO_TUNE"] = prev
+        from repro_torch.core import dispatch
+        dispatch.clear_cache()
+    return out
+
+
+def phase_cluster_cli(workdir: str) -> None:
+    """The clustering CLI (``python -m repro_torch.launch.cluster``) on the
+    card in a process of its own, on hacc_like at CLUSTER_CLI_N points with
+    ``auto`` and ``pallas-tree``: ``--out`` labels equal to the same run in
+    this process; then ``gdbscan`` (the CLI's baseline) at CLUSTER_GDBSCAN_N
+    boundary-separated points against ``dbscan_bruteforce_np``."""
+    from repro_torch.core import baselines
+    dset, n, eps, mp = CLUSTER_CLI
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    pts = pointclouds.load(dset, n)
+    for algorithm in ("auto", "pallas-tree"):
+        out = os.path.join(workdir, f"{algorithm}.npy")
+        cmd = [sys.executable, "-m", "repro_torch.launch.cluster",
+               "--data", dset, "-n", str(n), "--eps", str(eps),
+               "--minpts", str(mp), "--algorithm", algorithm,
+               "--out", out]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+        check(run.returncode == 0, f"cluster CLI {algorithm} exited "
+              f"{run.returncode}:\n{run.stdout[-2000:]}{run.stderr[-4000:]}")
+        for ln in run.stdout.strip().splitlines():
+            print(f"[cluster-cli] {ln}", flush=True)
+        want = repro_torch.dbscan(pts, eps, mp, algorithm=algorithm)
+        got = np.load(out)
+        check(np.array_equal(got, want.labels.cpu().numpy()),
+              f"cluster CLI {algorithm}: labels differ from the in-process "
+              f"run")
+        say("cluster-cli", algorithm=algorithm, n=n, backend=want.backend,
+            n_clusters=want.n_clusters, rc=run.returncode,
+            seconds=f"{time.perf_counter() - t0:.1f}", ok=True)
+    gn, geps, gmp = CLUSTER_GDBSCAN
+    x = separated(gn, 3, geps, seed=8)
+    t0 = time.perf_counter()
+    res = baselines.gdbscan(x, geps, gmp)
+    torch.cuda.synchronize()
+    g_s = time.perf_counter() - t0
+    labels, core = baselines.dbscan_bruteforce_np(x, geps, gmp)
+    check(res.labels.device.type == "cuda"
+          and np.array_equal(res.core_mask.cpu().numpy(), core)
+          and validate.same_partition(res.labels.cpu().numpy()[core],
+                                      labels[core])
+          and res.n_clusters == int(labels.max()) + 1,
+          "gdbscan on the card differs from dbscan_bruteforce_np")
+    validate.check_dbscan(x, geps, gmp, res.labels.cpu().numpy(),
+                          res.core_mask.cpu().numpy())
+    say("cluster-cli", algorithm="gdbscan", n=gn, d=3,
+        n_clusters=res.n_clusters, core=int(core.sum()),
+        seconds=f"{g_s:.2f}", vs="dbscan_bruteforce_np", ok=True)
+
+
 def timed(phase: str, fn, *args):
     """``fn(*args)``, with a line giving its wall time."""
     t0 = time.perf_counter()
@@ -2285,6 +2656,7 @@ def main() -> None:
 
     phase_environment()
     walk_err = timed("walk-check", phase_walk_check)
+    tune_err = timed("tune-check", phase_tune_check)
     tile_t = timed("tile-check", phase_tile_check)
     knn_err = timed("knn-check", phase_knn_check)
 
@@ -2324,18 +2696,28 @@ def main() -> None:
     del sv
     with tempfile.TemporaryDirectory() as workdir:
         timed("serve-cli", phase_serve_cli, workdir)
+    reset_counts()
+    timed("tune", phase_tune, runs)
+    seen_tu = counts()
+    say("counts", path="tune", **seen_tu)
+    check(seen_tu["walk"] > 0 and seen_tu["plain_walk_runs"] == 0,
+          f"tune: {seen_tu['walk']} walk launches, "
+          f"{seen_tu['plain_walk_runs']} plain walks")
+    with tempfile.TemporaryDirectory() as workdir:
+        timed("cluster-cli", phase_cluster_cli, workdir)
     timed("degenerate", phase_degenerate)
     if args.profile:
         phase_profile(runs)
     say("total-time", seconds=f"{time.perf_counter() - t_all:.1f}")
-    walk_t["max_abs_err"] = max(walk_err, main_err)
+    walk_t["max_abs_err"] = max(walk_err, main_err, tune_err)
     knn_t["max_abs_err"] = max(knn_err, knn_t["max_abs_err"])
 
     csrc = "src/repro_torch/csrc"
     kernels = [
         dict(name="walk", route="cuda", source=f"{csrc}/walk.cu",
              replaces="src/repro/kernels/traverse.py:98",
-             launches=seen["walk"] + seen_st["walk"] + seen_sv["walk"],
+             launches=(seen["walk"] + seen_st["walk"] + seen_sv["walk"]
+                       + seen_tu["walk"]),
              **walk_t),
         dict(name="pairwise_count", route="cuda",
              source=f"{csrc}/pairwise.cu",

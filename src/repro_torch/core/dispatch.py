@@ -15,9 +15,10 @@ serving the backends:
                            the point count is small.
   * ``pallas-tree``      — the hand-written walk kernel over the plain
                            fdbscan index (the name is the reference's, kept
-                           for API parity). On the card an auto tree
-                           decision becomes this backend; the index stays
-                           the one the decision chose.
+                           for API parity), each phase under the plan's
+                           tuner state (``core.tune``). On the card an auto
+                           tree decision becomes this backend; the index
+                           stays the one the decision chose.
   * ``stream``           — a one-shot snapshot of a streaming handle
                            (``repro_torch.stream``) bootstrapped over the
                            cached plain fdbscan index; :func:`stream_handle`
@@ -50,7 +51,7 @@ import torch
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
-from . import fdbscan, grid, lbvh
+from . import fdbscan, grid, lbvh, tune
 from .validate import check_points
 
 # Below this size the n^2 tile sweep is cheaper than divergent traversal.
@@ -101,16 +102,50 @@ def _accel(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
-def _maybe_kernel(p: "Plan", algorithm: str) -> "Plan":
-    """Name an auto tree decision on the card as the walk-kernel backend.
-    Every walk on a CUDA index is the kernel already; the plan keeps the
-    index the decision chose and records why."""
+def _maybe_kernel(p: "Plan", algorithm: str, eps: float,
+                  min_pts: int) -> "Plan":
+    """Name an auto tree decision on the card as the walk-kernel backend,
+    with its tuner state. Every walk on a CUDA index is the kernel already;
+    the plan keeps the index the decision chose and records why."""
     if algorithm != "auto" or p.tree is None or not _accel(p.device):
         return p
     stats = dict(p.stats)
     stats["reason"] = (stats.get("reason", "") +
                        "; CUDA device: hand-written walk kernel")
-    return p._replace(backend="pallas-tree", stats=stats)
+    return _attach_tune(p._replace(backend="pallas-tree", stats=stats),
+                        eps, min_pts)
+
+
+def _attach_tune(p: "Plan", eps: float, min_pts: int) -> "Plan":
+    """Resolve a pallas-tree plan's tuner state (``core.tune``).
+
+    The decision rides in the plan LRU beside the eps-independent index,
+    so repeat runs reuse it (and the depth calibration the first run
+    makes). ``REPRO_TUNE=search`` configs are also cached under the
+    bucketed :func:`core.tune.stats_key` (and the device type), so
+    equal-shaped plans share one measured search.
+    """
+    if p.backend != "pallas-tree" or p.tree is None:
+        return p
+    m = tune.mode()
+    if m == "search":
+        skey = ("tune-config", p.device.type,
+                tune.stats_key(p.segs, eps, min_pts))
+        hit = _cache_get(skey)
+        if hit is None:
+            with obs_trace.span("tune.search"):
+                hit = _cache_put(skey, tune.search(
+                    p.segs, p.tree, eps, min_pts, walk_index=p.walk_index))
+            obs_metrics.inc("tune_searches_total")
+        cfg, info = hit
+        state = tune.TuneState(cfg)
+        state.info = dict(info)
+    else:
+        state = tune.TuneState(tune.config_for(p.segs, p.tree, eps,
+                                               min_pts, m))
+    stats = dict(p.stats)
+    stats["tuned_config"] = state.describe()
+    return p._replace(tune=state, stats=stats)
 
 
 class Plan(NamedTuple):
@@ -122,11 +157,15 @@ class Plan(NamedTuple):
         tiled backend, and tree is None below two segments); a stream plan
         carries the plain fdbscan index its handles bootstrap from.
     stats: occupancy/size stats behind the choice; ``stats["reason"]``
-        states why this backend won.
+        states why this backend won; pallas-tree plans also record
+        ``stats["tuned_config"]``.
     device: where the index lives and the clustering runs.
     walk_index: the index's packed layout for the walk kernel
         (``repro_torch.kernels.walkpack.WalkIndex``), built with the index
         on a CUDA device; None on the CPU and without a tree.
+    tune: the plan's ``core.tune.TuneState`` (pallas-tree only): the
+        per-phase engine/lane-tile/unroll/order decision plus the lazily
+        calibrated walk-depth oracle, cached with the plan.
     """
     backend: str
     segs: grid.Segments | None
@@ -134,6 +173,7 @@ class Plan(NamedTuple):
     stats: dict
     device: torch.device
     walk_index: Any = None
+    tune: Any = None
 
 
 def clear_cache() -> None:
@@ -283,14 +323,15 @@ def _plan_impl(points, eps: float, min_pts: int, algorithm: str, mesh,
         # the walk kernel over the plain (eps-independent, cached) fdbscan
         # index — the explicit form of the auto decision on the card
         stats["reason"] = "explicit: hand-written walk kernel"
-        return _cache_put(key, _fdbscan_plan(points, pkey, stats)._replace(
-            backend="pallas-tree"))
+        return _cache_put(key, _attach_tune(
+            _fdbscan_plan(points, pkey, stats)._replace(
+                backend="pallas-tree"), eps, min_pts))
 
     if algorithm == "fdbscan" or d not in (2, 3):
         stats["reason"] = ("explicit" if algorithm == "fdbscan"
                            else "no eps-grid for this dimensionality")
         return _cache_put(key, _maybe_kernel(
-            _fdbscan_plan(points, pkey, stats), algorithm))
+            _fdbscan_plan(points, pkey, stats), algorithm, eps, min_pts))
 
     # eps-grid build: density probe and (potentially) the index itself
     with obs_trace.span("build", index="densebox") as sp:
@@ -305,10 +346,10 @@ def _plan_impl(points, eps: float, min_pts: int, algorithm: str, mesh,
         tree = _tree_of(segs)
         return _cache_put(key, _maybe_kernel(
             Plan("fdbscan-densebox", segs, tree, stats, points.device,
-                 _walk_index_of(segs, tree)), algorithm))
+                 _walk_index_of(segs, tree)), algorithm, eps, min_pts))
     stats["reason"] = f"dense_fraction < {DENSE_FRACTION_MIN}: plain tree"
     return _cache_put(key, _maybe_kernel(
-        _fdbscan_plan(points, pkey, stats), algorithm))
+        _fdbscan_plan(points, pkey, stats), algorithm, eps, min_pts))
 
 
 def dbscan(points, eps: float, min_pts: int, *, algorithm: str = "auto",
@@ -374,9 +415,20 @@ def dbscan(points, eps: float, min_pts: int, *, algorithm: str = "auto",
             res = ops.dbscan_tiled(as_points(points, p.device), eps,
                                    min_pts, star=star)
         else:
+            if p.tune is not None:
+                # the decision in the metrics snapshot: an info-style gauge
+                # whose labels carry the per-phase choice
+                desc = p.tune.describe()
+                for ph in ("first_pass", "sweep", "border"):
+                    c = desc[ph]
+                    obs_metrics.set_gauge(
+                        "tuned_config_info", 1.0, phase=ph,
+                        engine=c["engine"], lane_tile=str(c["lane_tile"]),
+                        unroll=str(c["unroll"]), reorder=c["reorder"],
+                        source=desc["source"])
             res = fdbscan.cluster_from_index(p.segs, p.tree, eps, min_pts,
                                              star=star, frontier=frontier,
-                                             backend=p.backend,
+                                             backend=p.backend, tune=p.tune,
                                              walk_index=p.walk_index)
         sp.watch(res.labels, res.core_mask)
     obs_metrics.inc("dbscan_runs_total", backend=p.backend)

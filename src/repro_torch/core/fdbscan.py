@@ -21,11 +21,17 @@ Every walk goes through ``repro_torch.kernels.traverse.traverse``: the
 plain engine for an index on the CPU, the walk kernel for one on the card.
 Memory is O(n + m): neighbor lists are never materialized.
 
+The ``pallas-tree`` backend runs each phase under the plan's tuner state
+(:mod:`repro_torch.core.tune`): engine, lane tile, unroll and lane order per
+phase, with the first pass's per-query trips as the depth oracle of later
+walks. Tuning changes the schedule only, never a result.
+
 Instrumented (:mod:`repro_torch.obs`) at the reference's points: the
 ``traverse`` (first pass), ``sweep``, ``border`` and ``finalize`` spans and
 the walks' ``traversal_evals_total``/``traversal_iters_total`` counters,
-labelled by phase and engine (``"reference"`` for the plain engine,
-``"cuda"`` for the walk kernel).
+labelled by phase and engine: on the CPU the reference's labels
+(``"pallas"`` for a tuned phase's kernel engine, ``"reference"`` for the
+plain engine), on the card ``"cuda"`` (the walk kernel).
 """
 from __future__ import annotations
 
@@ -72,15 +78,55 @@ class DBSCANResult(NamedTuple):
     backend: str = ""
 
 
-def _walk(*args, **kwargs):
-    from repro_torch.kernels.traverse import traverse
-    return traverse(*args, **kwargs)
+def _walk(*args, engine=None, **kwargs):
+    """One walk: ``engine`` (a phase's walk from ``tune.engine_fn``), by
+    default the walk entry ``kernels.traverse.traverse``."""
+    if engine is None:
+        from repro_torch.kernels.traverse import traverse as engine
+    return engine(*args, **kwargs)
 
 
-def _engine_name(segs: grid.Segments) -> str:
-    """Metric label for the walks' engine: the walk kernel on the card,
-    the plain engine (the reference's label for its own) elsewhere."""
-    return "cuda" if segs.pts.device.type == "cuda" else "reference"
+def _engine_name(segs: grid.Segments, engine=None) -> str:
+    """Metric label for a walk's engine: ``"cuda"`` (the walk kernel) on
+    the card; on the CPU the reference's labels, ``"pallas"`` for a tuned
+    phase's kernel engine and ``"reference"`` for the plain engine."""
+    if segs.pts.device.type == "cuda":
+        return "cuda"
+    return ("reference" if engine is None or engine is traversal.traverse
+            else "pallas")
+
+
+def _phase(tune, name: str, segs: grid.Segments, *, n_lanes=None, n=None):
+    """The walk keyword arguments of one phase under the tuner state
+    ``tune`` (none without one): its ``engine``, the ``unroll`` of a kernel
+    engine (the CPU's walk entry otherwise runs the plain engine's) and
+    its ``depth_rank`` oracle. ``n_lanes`` is the reference's (padded) lane
+    count, so the CPU resolves the reference's engines. On the card every
+    phase is the walk kernel: one that resolves to the plain engine raises.
+    """
+    if tune is None:
+        return {}
+    from . import tune as tune_mod
+    cfg = tune.phase(name, n_lanes=n_lanes, n=n)
+    if cfg.engine == "reference" and segs.pts.device.type == "cuda":
+        raise ValueError(
+            f"tune: phase {name!r} resolved to the plain engine "
+            f"({cfg}) on a CUDA index; every walk on the card is the walk "
+            f"kernel")
+    kw = {"engine": tune_mod.engine_fn(cfg)}
+    if cfg.engine != "reference":
+        kw["unroll"] = cfg.unroll
+    rank = tune.rank_for(cfg)
+    if rank is not None:
+        kw["depth_rank"] = rank
+    return kw
+
+
+def _walk_kw(phase: dict, walk_index) -> dict:
+    """Keyword arguments of one phase's walks: :func:`_phase`'s, and the
+    packed index when there is one."""
+    return phase if walk_index is None else {**phase,
+                                             "walk_index": walk_index}
 
 
 def _record_trace(phase: str, engine: str, tr) -> None:
@@ -108,8 +154,13 @@ def _unify_dense(labels, segs: grid.Segments):
     return torch.where(segs.dense_pt, torch.minimum(labels, dense_lab), labels)
 
 
-def _fused_first_pass(tree, segs, eps, min_pts: int, *, walk_index=None):
-    """(core, labels0, vals0, absorbed, trace) from a single traversal."""
+def _fused_first_pass(tree, segs, eps, min_pts: int, *, phase=None,
+                      walk_index=None):
+    """(core, labels0, vals0, absorbed, trace) from a single traversal.
+
+    ``phase`` holds the walk's tuned keyword arguments (:func:`_phase`:
+    engine, unroll, depth oracle; default the walk entry's defaults);
+    none changes a result."""
     n = segs.n_points
     dev = segs.pts.device
     idx = torch.arange(n, dtype=torch.int32, device=dev)
@@ -117,14 +168,18 @@ def _fused_first_pass(tree, segs, eps, min_pts: int, *, walk_index=None):
     # within dense cells. Every gathered value is therefore a sorted index
     # whose core status can be checked once counts are known.
     vals0 = _unify_dense(idx, segs)
+    kw = _walk_kw(dict(phase or {}), walk_index)
+    depth_rank = kw.pop("depth_rank", None)
+
+    def walk(*args, **more):
+        return _walk(*args, **kw, **more)
+
     # hits excludes the query itself: |N_eps(q)| >= min_pts <=> hits >= mp-1,
     # so the count may saturate at min_pts - 1 (re-arming the dense
     # short-circuit for saturated lanes — the fused early exit).
-    tr = _walk(tree, segs,
-               traversal.intersects(traversal.sphere(eps)),
-               traversal.CountMinLabelVisitor(
-                   vals0, torch.ones(n, dtype=torch.bool, device=dev),
-                   cap=min_pts - 1), walk_index=walk_index)
+    tr = traversal.fused_count_minlabel(tree, segs, eps, vals0,
+                                        cap=min_pts - 1, traverse_fn=walk,
+                                        depth_rank=depth_rank)
     core = segs.dense_pt | (tr.hits >= min_pts - 1)
     # Validate the candidate: vals0 maps loose points to themselves and
     # dense points to a dense (hence core) member, so core[cand] holds iff
@@ -174,12 +229,12 @@ def _scatter_back(n: int, ids, acc):
 
 
 def _gather_minlabel(tree, segs, eps, labels, gather_mask, ids,
-                     node_mask=None, walk_index=None):
+                     node_mask=None, walk_index=None, phase=None):
     """One (possibly compacted/pruned) min-label sweep, full-width output."""
     tr = _walk(tree, segs,
                traversal.intersects(traversal.sphere(eps), ids=ids),
                traversal.MinLabelVisitor(labels, gather_mask),
-               node_mask=node_mask, walk_index=walk_index)
+               node_mask=node_mask, **_walk_kw(phase or {}, walk_index))
     return _scatter_back(segs.n_points, ids, tr.acc), tr
 
 
@@ -234,7 +289,7 @@ def _near_changed(keys: torch.Tensor, d: int, changed: torch.Tensor
 
 def _sweep_to_fixpoint(tree, segs, eps, core, labels0, *,
                        frontier: bool = True, collect_stats: bool = False,
-                       fused_init=None, walk_index=None):
+                       fused_init=None, walk_index=None, tune=None):
     """Hook+jump sweeps until the core-core components stabilize.
 
     Frontier restriction: labels only ever decrease and the hook is a
@@ -244,6 +299,9 @@ def _sweep_to_fixpoint(tree, segs, eps, core, labels0, *,
     (a) masks the gather to changed points and (b) prunes tree descent into
     subtrees containing no changed point. Labels and sweep counts are
     identical to full sweeps; only the work shrinks.
+
+    ``tune`` (a ``tune.TuneState``) resolves each sweep's engine against
+    its lane count, as the frontier drains.
 
     Returns (labels, sweeps, stats) with per-sweep frontier sizes and
     loop-trip totals.
@@ -287,14 +345,16 @@ def _sweep_to_fixpoint(tree, segs, eps, core, labels0, *,
     sweeps = 0
     stats = {"frontier_per_sweep": [], "active_per_sweep": [],
              "iters_per_sweep": [], "evals_per_sweep": []}
-    engine = _engine_name(segs)
     while True:
+        phase = _phase(tune, "sweep", segs, n_lanes=_pad_size(ids.shape[0]))
+        engine = _engine_name(segs, phase.get("engine"))
         with obs_trace.span("sweep", i=sweeps + 1, engine=engine) as sp:
             tr = _walk(tree, segs,
                        traversal.intersects(traversal.sphere(eps), ids=ids),
                        traversal.MinLabelVisitor(labels, gather_mask,
                                                  mask_wide=gather_wide),
-                       node_mask=node_mask, walk_index=walk_index, **dual)
+                       node_mask=node_mask,
+                       **_walk_kw(phase, walk_index), **dual)
             dual = {}             # only the first sweep may be split
             gather_wide = None
             new, changed, changed_flags = _post_sweep(tree, segs, labels,
@@ -327,19 +387,21 @@ def _sweep_to_fixpoint(tree, segs, eps, core, labels0, *,
 
 
 def _assign_borders(tree, segs, eps, core, core_labels, *,
-                    walk_index=None):
+                    walk_index=None, tune=None):
     """Borders take the min adjacent core root; isolated non-core -> noise.
 
     Traverses a compacted non-core query set (usually a small minority),
     pruning subtrees that hold no core point (nothing to gather there).
     """
     ids = _compact_ids(~core)
+    phase = _phase(tune, "border", segs, n_lanes=_pad_size(ids.shape[0]),
+                   n=segs.n_points)
     vals = torch.where(core, core_labels, INT_MAX)
     gathered, tr = _gather_minlabel(tree, segs, eps, vals, core, ids,
                                     node_mask=_frontier_node_mask(tree, segs,
                                                                   core),
-                                    walk_index=walk_index)
-    _record_trace("border", _engine_name(segs), tr)
+                                    walk_index=walk_index, phase=phase)
+    _record_trace("border", _engine_name(segs, phase.get("engine")), tr)
     labels = torch.where(core, core_labels, gathered)
     return torch.where(labels == INT_MAX, -1, labels)
 
@@ -363,19 +425,30 @@ def _finalize(labels_sorted, order, n):
 def cluster_from_index(segs: grid.Segments, tree, eps: float, min_pts: int,
                        *, star: bool = False, frontier: bool = True,
                        backend: str = "", with_stats: bool = False,
-                       walk_index=None):
+                       tune=None, walk_index=None):
     """Run the clustering phases over a prebuilt (segments, tree) index.
 
     ``tree`` may be None when ``segs.n_segments == 1`` (single dense cell)
     or ``n == 1``: both return before any walk. Every walk runs on the
     index's device (the walk kernel on the card, the plain engine on the
-    CPU); ``backend`` only names the result. ``walk_index`` is the index's
+    CPU). ``backend="pallas-tree"`` runs each phase under ``tune``, a
+    ``core.tune.TuneState`` (the dispatcher attaches the plan's; ``None``
+    derives one from the ``REPRO_TUNE`` mode): per-phase engine, lane tile,
+    unroll and lane order, which change the schedule only, never the
+    results; other backends ignore ``tune``. ``walk_index`` is the index's
     packed layout for the walk kernel (``dispatch.Plan.walk_index``); on
     the card it is packed here, once for all walks, when not given.
     """
     n = segs.n_points
     dev = segs.pts.device
     stats: dict = {}
+    if backend == "pallas-tree":
+        from . import tune as tune_mod
+        if tune is None and tree is not None:
+            tune = tune_mod.TuneState(
+                tune_mod.config_for(segs, tree, eps, min_pts))
+    else:
+        tune = None
     if n == 1:
         noise = min_pts > 1
         res = DBSCANResult(
@@ -399,16 +472,21 @@ def cluster_from_index(segs: grid.Segments, tree, eps: float, min_pts: int,
     if walk_index is None and dev.type == "cuda":
         from repro_torch.kernels.walkpack import pack_index
         walk_index = pack_index(tree, segs)
-    engine = _engine_name(segs)
+    fp = _phase(tune, "first_pass", segs)
+    engine = _engine_name(segs, fp.get("engine"))
     with obs_trace.span("traverse", phase="first_pass", engine=engine) as sp:
         core, labels0, vals0, absorbed, first = _fused_first_pass(
-            tree, segs, eps, min_pts, walk_index=walk_index)
+            tree, segs, eps, min_pts, phase=fp, walk_index=walk_index)
         sp.watch(core, labels0)
     _record_trace("first_pass", engine, first)
+    if tune is not None:
+        # the pass's per-query loop trips are the depth oracle of every
+        # later reorder="depth" walk over this plan
+        tune.calibrate(first.iters)
     core_labels, loop_sweeps, sweep_stats = _sweep_to_fixpoint(
         tree, segs, eps, core, labels0, frontier=frontier,
         collect_stats=with_stats, fused_init=(vals0, absorbed),
-        walk_index=walk_index)
+        walk_index=walk_index, tune=tune)
     n_sweeps = 1 + loop_sweeps          # the fused pass is sweep #1
     n_traversals = n_sweeps
 
@@ -418,7 +496,7 @@ def cluster_from_index(segs: grid.Segments, tree, eps: float, min_pts: int,
         with obs_trace.span("border", engine=engine) as sp:
             labels_sorted = _assign_borders(tree, segs, eps, core,
                                             core_labels,
-                                            walk_index=walk_index)
+                                            walk_index=walk_index, tune=tune)
             sp.watch(labels_sorted)
         n_traversals += 1
 

@@ -82,6 +82,13 @@ class Tree(NamedTuple):
     box_lo: torch.Tensor    # (2n-1, d) AABB lower corners
     box_hi: torch.Tensor    # (2n-1, d) AABB upper corners
 
+    @property
+    def n_leaves(self) -> int:
+        return (self.parent.shape[0] + 1) // 2
+
+    def leaf_id(self, k):
+        return k + self.n_leaves - 1
+
 
 def _clz32(x: torch.Tensor) -> torch.Tensor:
     """Count of leading zeros of the 32-bit value held in int64 ``x``

@@ -576,3 +576,159 @@ def traverse(tree: Tree, segs: Segments, predicates, callback, carry=None,
 # Plain-engine runs (a plain integer, read by the on-card smoke run to
 # show that no walk of the main path took this route).
 traverse.runs = 0
+
+
+def tree_left(tree: Tree, node):
+    """The left child of internal node ``node`` (clamped into range)."""
+    return _tree_left(tree, node)
+
+
+def lane_sort_key(reorder: str, query_ids, q_arr, external: bool,
+                  depth_rank=None):
+    """Per-lane sort key for lane reordering (the reference's
+    ``lane_sort_key``; int64 keys holding the reference's values).
+
+    A walk may permute its lanes by this key before it runs and apply the
+    inverse permutation to every per-lane output after, so no output
+    changes (``repro_torch.kernels.traverse.traverse(reorder=...)``).
+    Policies:
+
+      * ``"none"``   — no key (identity).
+      * ``"morton"`` — the query points' Morton codes (the uint32 value),
+        so neighbouring lanes walk neighbouring subtrees; the only option
+        for external batches.
+      * ``"depth"``  — ``-depth_rank[query_id]``, where ``depth_rank`` is
+        the per-query loop-trip count of a prior pass over the same index
+        (``Trace.iters`` of the fused first pass, by sorted point id), so
+        the deepest walks go first. Falls back to Morton for external
+        batches and to ``None`` when no rank is given.
+
+    Dead lanes (``query_ids < 0``) get the largest key of their policy
+    (``0xFFFFFFFF`` for Morton keys, ``INT_MAX`` for depth keys). Returns
+    the key tensor, or ``None`` when the order is the identity. Raises
+    ``ValueError`` for any other policy.
+    """
+    if reorder in (None, "none"):
+        return None
+    if reorder not in ("morton", "depth"):
+        raise ValueError(
+            f"reorder must be 'none', 'morton' or 'depth'; got {reorder!r}")
+    live = query_ids >= 0
+    if reorder == "depth" and not external:
+        if depth_rank is None:
+            return None
+        depth = depth_rank[torch.clamp_min(query_ids, 0).long()].long()
+        return torch.where(live, -depth, INT_MAX)
+    from .morton import morton_encode
+    if q_arr.shape[0] == 0:
+        return torch.zeros(0, dtype=torch.int64, device=q_arr.device)
+    return torch.where(live, morton_encode(q_arr), 0xFFFFFFFF)
+
+
+def _ids_from_mask(n: int, query_active, device) -> torch.Tensor:
+    """Full-width id vector with inactive lanes marked -1 (no compaction)."""
+    ids = torch.arange(n, dtype=torch.int32, device=device)
+    if query_active is None:
+        return ids
+    return torch.where(query_active, ids, -1)
+
+
+def _walk_fn(tree: Tree, segs: Segments, walk_index):
+    """The walk kernel's entry (plain engine for CPU tensors) with the
+    index's packed layout bound: ``walk_index`` if given, else packed here
+    once for a CUDA index."""
+    from repro_torch.kernels import traverse as kt
+    if walk_index is None and segs.pts.device.type == "cuda" \
+            and tree is not None:
+        from repro_torch.kernels.walkpack import pack_index
+        walk_index = pack_index(tree, segs)
+
+    def walk(*args, **kw):
+        return kt.traverse(*args, walk_index=walk_index, **kw)
+    return walk
+
+
+# --------------------------------------------------------------------- #
+# DBSCAN epilogue helpers (visitor instances over the walk)             #
+# --------------------------------------------------------------------- #
+# On CPU tensors these run the plain engine; on CUDA tensors the walk
+# kernel (never the plain engine), with the index's packed layout taken
+# from ``walk_index`` or packed once per call.
+
+def count_neighbors(tree: Tree, segs: Segments, eps: float, cap: int,
+                    query_active=None, *, walk_index=None) -> torch.Tensor:
+    """|N_eps(x)| per sorted point, saturated at ``cap`` (early exit)."""
+    return count_neighbors_with_work(tree, segs, eps, cap, query_active,
+                                     walk_index=walk_index)[0]
+
+
+def count_neighbors_with_work(tree: Tree, segs: Segments, eps: float,
+                              cap: int, query_active=None, *,
+                              walk_index=None):
+    """(counts, distance_evaluations) — the paper's work metric."""
+    n = segs.n_points
+    tr = _walk_fn(tree, segs, walk_index)(
+        tree, segs,
+        intersects(sphere(eps),
+                   ids=_ids_from_mask(n, query_active, segs.pts.device)),
+        CountVisitor(cap=cap))
+    return tr.acc, tr.evals
+
+
+def minlabel_sweep(tree: Tree, segs: Segments, eps: float, labels,
+                   gather_mask, query_active, *, walk_index=None):
+    """Per active query: min(label) over neighbors with gather_mask.
+
+    Returns (min_labels, matched_other_count); an inactive query returns
+    its own ``labels`` value (no-op hook). ``labels`` must already be
+    consistent within dense segments (the caller re-unifies after updates).
+    """
+    tr = _walk_fn(tree, segs, walk_index)(
+        tree, segs,
+        intersects(sphere(eps), ids=_ids_from_mask(
+            segs.n_points, query_active, segs.pts.device)),
+        MinLabelVisitor(labels, gather_mask))
+    # inactive lanes carry no query identity inside the walk; restore the
+    # own-value contract here where lane i <=> point i
+    return torch.where(query_active, tr.acc, labels), tr.hits
+
+
+def fused_count_minlabel(tree: Tree, segs: Segments, eps: float,
+                         point_vals, point_mask=None, query_ids=None,
+                         cap: int = INT_MAX, traverse_fn=None,
+                         depth_rank=None, *, walk_index=None) -> Trace:
+    """The fused first pass: one walk, two answers.
+
+    Returns the full ``Trace``: ``acc`` is the min gathered value over all
+    masked neighbors (candidate label — the caller validates it against the
+    core mask once counts are known), ``hits`` the neighbor count excluding
+    self, exact up to saturation at ``cap`` (pass ``min_pts - 1``; dense
+    queries are core by construction and may undercount). ``traverse_fn``
+    swaps the walk (default: the walk kernel's entry, which runs the plain
+    engine for CPU tensors, over ``walk_index``); ``depth_rank`` is the
+    lane-order oracle of ``reorder="depth"``, forwarded only when given.
+    """
+    if point_mask is None:
+        point_mask = torch.ones(segs.n_points, dtype=torch.bool,
+                                device=segs.pts.device)
+    if traverse_fn is None:
+        traverse_fn = _walk_fn(tree, segs, walk_index)
+    kw = {} if depth_rank is None else {"depth_rank": depth_rank}
+    return traverse_fn(tree, segs, intersects(sphere(eps), ids=query_ids),
+                       CountMinLabelVisitor(point_vals, point_mask, cap=cap),
+                       **kw)
+
+
+def border_gather(tree: Tree, segs: Segments, eps: float, root_labels,
+                  core_mask, query_active, *, walk_index=None):
+    """Min core-neighbor root label per non-core query; INT_MAX if none."""
+    vals = torch.where(core_mask, root_labels, INT_MAX)
+    tr = _walk_fn(tree, segs, walk_index)(
+        tree, segs,
+        intersects(sphere(eps), ids=_ids_from_mask(
+            segs.n_points, query_active, segs.pts.device)),
+        MinLabelVisitor(vals, core_mask))
+    # active lanes start from vals[q] (INT_MAX for non-core queries), so
+    # acc == INT_MAX <=> no core neighbor (noise); inactive lanes return
+    # their own vals[q] to keep the lane i <=> point i contract.
+    return torch.where(query_active, tr.acc, vals), tr.hits

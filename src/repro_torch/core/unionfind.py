@@ -16,11 +16,23 @@ root) is ``jump_to_fixpoint``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
 def jump_once(labels: torch.Tensor) -> torch.Tensor:
     return labels[labels]
+
+
+def jump_to_fixpoint_np(labels: np.ndarray) -> np.ndarray:
+    """NumPy twin of :func:`jump_to_fixpoint` for host-driven repair
+    loops. Requires ``labels[i] <= i`` — a decreasing pointer forest — so
+    the doubling can never cycle."""
+    while True:
+        jumped = labels[labels]
+        if (jumped == labels).all():
+            return labels
+        labels = jumped
 
 
 def jump_to_fixpoint(labels: torch.Tensor) -> torch.Tensor:

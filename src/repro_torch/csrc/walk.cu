@@ -44,8 +44,14 @@
 //     the schedule changes no output;
 //   * per trip a thread takes up to kNodeSteps node steps, then one batch
 //     of members if it is inside a segment.
-// The schedule (kBlock, kBatch, kRefill, kNodeSteps) is fixed at compile
-// time.
+// The block size is a launch argument (the reference's lane tile: 64,
+// 128, 256 or 512 threads; the kernel uses no shared memory, and every
+// block size gives the same outputs). Each body is compiled once for each
+// bound of 64, 128, 256 and 512 threads (`__launch_bounds__`), and a
+// launch takes the smallest bound that holds its block: under one bound
+// of 512 the compiler gave the block of 128 up to 4 more registers a
+// thread (60 against 56), so each block size keeps the registers it gets
+// alone. kBatch, kRefill and kNodeSteps are fixed at compile time.
 //
 // Float discipline (compiled with --fmad=false, so the compiler fuses
 // nothing on its own): every squared distance is the first axis's square
@@ -65,7 +71,7 @@ constexpr int kCount = 0;
 constexpr int kMinLabel = 1;
 constexpr int kCountMinLabel = 2;
 constexpr unsigned kFullWarp = 0xffffffffu;
-constexpr int kBlock = 128;     // threads per block
+constexpr int kMaxBlock = 512;  // the largest block a launch may ask for
 constexpr int kBatch = 4;       // member tests loaded together
 constexpr int kRefill = 8;      // idle threads of a warp that take new lanes
 constexpr int kNodeSteps = 2;   // node steps a thread takes per trip
@@ -107,8 +113,8 @@ struct WalkArgs {
   int* iters;
 };
 
-template <int KIND, typename V, int D>
-__global__ void __launch_bounds__(kBlock) walk_kernel(const WalkArgs a) {
+template <int KIND, typename V, int D, int MAXB>
+__global__ void __launch_bounds__(MAXB) walk_kernel(const WalkArgs a) {
   using P = typename std::conditional<D == 3, float4, float2>::type;
   const P* __restrict__ pts = static_cast<const P*>(a.pts);
   const V* __restrict__ vals = static_cast<const V*>(a.vals);
@@ -333,61 +339,75 @@ __global__ void __launch_bounds__(kBlock) walk_kernel(const WalkArgs a) {
   }
 }
 
-// Resident blocks on the whole card for this kernel, cached per kernel
-// (one static per template instance) and device.
-template <int KIND, typename V, int D>
-int resident_blocks() {
-  static int device = -1, blocks = 0;
+// Resident blocks on the whole card for this kernel at `block` threads a
+// block, cached per kernel (statics per template instance), block size and
+// device.
+template <int KIND, typename V, int D, int MAXB>
+int resident_blocks(int block) {
+  static int device[MAXB / 32 + 1] = {};  // device + 1; 0: not known
+  static int blocks[MAXB / 32 + 1] = {};
+  const int slot = block / 32;
   int dev = 0;
   cudaGetDevice(&dev);
-  if (device != dev) {
+  if (device[slot] != dev + 1) {
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, walk_kernel<KIND, V, D>, kBlock, 0);
-    device = dev;
-    blocks = (per_sm > 0 ? per_sm : 1) * sms;
+        &per_sm, walk_kernel<KIND, V, D, MAXB>, block, 0);
+    blocks[slot] = (per_sm > 0 ? per_sm : 1) * sms;
+    device[slot] = dev + 1;
   }
-  return blocks;
+  return blocks[slot];
 }
 
 // Launches one block per resident slot, or fewer for few lanes; returns
 // the grid size.
-template <int KIND, typename V, int D>
-int launch(const WalkArgs& a, cudaStream_t stream) {
-  const int resident = resident_blocks<KIND, V, D>();
-  const int wanted = (a.n_lanes + kBlock - 1) / kBlock;
+template <int KIND, typename V, int D, int MAXB>
+int launch_bound(const WalkArgs& a, int block, cudaStream_t stream) {
+  const int resident = resident_blocks<KIND, V, D, MAXB>(block);
+  const int wanted = (a.n_lanes + block - 1) / block;
   const int grid = wanted < resident ? wanted : resident;
-  walk_kernel<KIND, V, D><<<grid, kBlock, 0, stream>>>(a);
+  walk_kernel<KIND, V, D, MAXB><<<grid, block, 0, stream>>>(a);
   return grid;
 }
 
-template <int KIND, typename V>
-int launch_d(const WalkArgs& a, int d, cudaStream_t s) {
-  return d == 2 ? launch<KIND, V, 2>(a, s) : launch<KIND, V, 3>(a, s);
+// The body compiled for the smallest bound that holds `block`.
+template <int KIND, typename V, int D>
+int launch(const WalkArgs& a, int block, cudaStream_t s) {
+  if (block <= 64) return launch_bound<KIND, V, D, 64>(a, block, s);
+  if (block <= 128) return launch_bound<KIND, V, D, 128>(a, block, s);
+  if (block <= 256) return launch_bound<KIND, V, D, 256>(a, block, s);
+  return launch_bound<KIND, V, D, kMaxBlock>(a, block, s);
 }
 
-int launch_any(int kind, int vals_f32, int d, const WalkArgs& a,
+template <int KIND, typename V>
+int launch_d(const WalkArgs& a, int d, int block, cudaStream_t s) {
+  return d == 2 ? launch<KIND, V, 2>(a, block, s)
+                : launch<KIND, V, 3>(a, block, s);
+}
+
+int launch_any(int kind, int vals_f32, int d, int block, const WalkArgs& a,
                cudaStream_t s) {
-  if (kind == kCount) return launch_d<kCount, int>(a, d, s);
+  if (kind == kCount) return launch_d<kCount, int>(a, d, block, s);
   if (kind == kMinLabel) {
-    return vals_f32 ? launch_d<kMinLabel, float>(a, d, s)
-                    : launch_d<kMinLabel, int>(a, d, s);
+    return vals_f32 ? launch_d<kMinLabel, float>(a, d, block, s)
+                    : launch_d<kMinLabel, int>(a, d, block, s);
   }
-  return vals_f32 ? launch_d<kCountMinLabel, float>(a, d, s)
-                  : launch_d<kCountMinLabel, int>(a, d, s);
+  return vals_f32 ? launch_d<kCountMinLabel, float>(a, d, block, s)
+                  : launch_d<kCountMinLabel, int>(a, d, block, s);
 }
 
 }  // namespace
 
 // Launch the walk on `stream`. kind: 0 count, 1 minlabel, 2 countminlabel;
 // vals_f32: vals/acc are float32 (else int32; count is always int32);
-// d in {2, 3}; `next` points to one int32 of scratch, zeroed here on the
-// stream before the launch. Writes the grid size used (resident blocks,
-// capped by the lanes) to *grid_out when it is not null. Returns the first
-// CUDA error (0 on success).
+// d in {2, 3}; block: threads a block, a multiple of 32 up to 512 (else
+// cudaErrorInvalidValue); `next` points to one int32 of scratch, zeroed
+// here on the stream before the launch. Writes the grid size used
+// (resident blocks, capped by the lanes) to *grid_out when it is not null.
+// Returns the first CUDA error (0 on success).
 extern "C" int walk_launch(
-    int kind, int vals_f32, int d, int unroll, int use_range_mask,
+    int kind, int vals_f32, int d, int block, int unroll, int use_range_mask,
     int has_node_mask, int dual_nodes, int dual_gather, int n_lanes, int m,
     float r2, int cap, const float* q, const int* qid, const int* self_id,
     const uint8_t* dense, const int* rank, const uint8_t* wide,
@@ -430,10 +450,13 @@ extern "C" int walk_launch(
   a.evals = evals;
   a.iters = iters;
   if (n_lanes <= 0) return 0;
+  if (block < 32 || block > kMaxBlock || block % 32 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = cudaMemsetAsync(next, 0, sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = launch_any(kind, vals_f32, d, a, s);
+  const int grid = launch_any(kind, vals_f32, d, block, a, s);
   if (grid_out != nullptr) *grid_out = grid;
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,13 +8,17 @@ DBSCAN visitors (count, minlabel, countminlabel) into the walk and performs
 equal the plain engine's on the same inputs; it counts each lane's work
 units and reports ``iters`` as the plain engine's trips at the same
 ``unroll``. It reads the index in the packed layout of
-:mod:`repro_torch.kernels.walkpack`.
+:mod:`repro_torch.kernels.walkpack`. Its block size is the reference's lane
+tile (``lane_tile``, default :data:`LANE_TILE`).
 
 :func:`traverse` is the single entry every clustering phase calls. It
 dispatches on the device of the index: CPU tensors run the plain engine
 (``repro_torch.core.traversal.traverse``); CUDA tensors launch the kernel,
 or raise for a predicate or visitor the kernel does not take. It never
-falls back from the card to the plain engine.
+falls back from the card to the plain engine. With ``reorder`` it permutes
+the lanes by :func:`repro_torch.core.traversal.lane_sort_key` before the
+walk and puts every per-lane output back in lane order after it, on either
+device (lane state never crosses lanes, so no output changes).
 """
 from __future__ import annotations
 
@@ -35,17 +39,20 @@ INT_MAX = traversal.INT_MAX
 # Pallas kernel's PALLAS_UNROLL.
 PALLAS_UNROLL = 4
 
-# Threads per block of the walk kernel (csrc/walk.cu: kBlock).
-BLOCK = 128
+# The reference's default lane tile, the walk kernel's default threads per
+# block; a launch takes any multiple of 32 up to 512 (csrc/walk.cu).
+LANE_TILE = 128
 
 #: Visitor types whose hooks the kernel inlines, by kernel kind code.
 KINDS = {traversal.CountVisitor: 0, traversal.MinLabelVisitor: 1,
          traversal.CountMinLabelVisitor: 2}
+#: Visitor types whose hooks the kernel inlines (the reference's name).
+FUSIBLE_VISITORS = tuple(KINDS)
 #: the kinds' names in the launch counters (the reference's labels)
 KIND_NAMES = ("count", "minlabel", "countminlabel")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_I] * 10 + [_F, _I] + [_P] * 24
+_ARGTYPES = [_I] * 11 + [_F, _I] + [_P] * 24
 
 
 def fusible(predicates, callback) -> bool:
@@ -93,12 +100,15 @@ def _check_index(index: WalkIndex, n: int, d: int, m: int, dev=None):
 
 def walk(kind: int, *, q, qid, self_id, dense, rank, wide, acc0, hits0,
          index: WalkIndex, r2: float, cap: int = INT_MAX,
-         unroll: int = PALLAS_UNROLL, range_r=None, node_mask=None,
-         node_mask_wide=None, vals=None, mask=None, mask_wide=None):
+         unroll: int = PALLAS_UNROLL, block: int = LANE_TILE, range_r=None,
+         node_mask=None, node_mask_wide=None, vals=None, mask=None,
+         mask_wide=None):
     """Launch the walk kernel on the current stream (CUDA tensors only).
 
     Lane inputs: q (L, d) f32; qid, self_id, rank (L,) i32; dense, wide (L,)
-    bool; acc0 (L,) i32 (f32 with float ``vals``); hits0 (L,) i32. Index:
+    bool; acc0 (L,) i32 (f32 with float ``vals``); hits0 (L,) i32.
+    ``block``: threads a block, a multiple of 32 from 32 to 512 (no output
+    depends on it). Index:
     ``index`` from :func:`walkpack.pack_index` over n points, m >= 2
     segments and d in {2, 3}; optional range_r (2m-1,) i32 (turns the range
     mask on), node_mask and node_mask_wide (2m-1,) bool; vals (n,) i32 or
@@ -119,6 +129,9 @@ def walk(kind: int, *, q, qid, self_id, dense, rank, wide, acc0, hits0,
     m = index.leaf_end.shape[0]
     if unroll < 1:
         raise ValueError(f"walk: unroll must be >= 1, got {unroll}")
+    if block < 32 or block > 512 or block % 32:
+        raise ValueError(f"walk: block must be a multiple of 32 from 32 to "
+                         f"512, got {block}")
     nodes_p, leaf_end_p, pts_p = _check_index(index, n, d, m)
     dev = index.pts.device
     nn = 2 * m - 1
@@ -169,7 +182,8 @@ def walk(kind: int, *, q, qid, self_id, dense, rank, wide, acc0, hits0,
     grid = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().walk_launch(
-        kind, int(vals_dtype == f32), d, int(unroll), int(range_r is not None),
+        kind, int(vals_dtype == f32), d, int(block), int(unroll),
+        int(range_r is not None),
         int(node_mask is not None), int(node_mask_wide is not None),
         int(has_mask_wide), L, m, r2, int(cap),
         p["q"], p["qid"], p["self_id"], p["dense"], p["rank"], p["wide"],
@@ -181,6 +195,7 @@ def walk(kind: int, *, q, qid, self_id, dense, rank, wide, acc0, hits0,
     _build.check(err, "walk")
     walk.launches += 1
     walk.last_grid = grid.value
+    walk.last_block = int(block)
     if obs_metrics.active() is not None:
         # the reference's launch counters, under its names
         obs_metrics.inc("pallas_kernel_launches_total", kind=KIND_NAMES[kind])
@@ -190,71 +205,137 @@ def walk(kind: int, *, q, qid, self_id, dense, rank, wide, acc0, hits0,
 
 
 # Kernel launches (a plain integer, read by the on-card smoke run), and the
-# grid of the latest launch (blocks).
+# grid (blocks) and block (threads) of the latest launch.
 walk.launches = 0
 walk.last_grid = 0
+walk.last_block = 0
+
+
+
+
+def _permute_trace(tr: traversal.Trace, inv) -> traversal.Trace:
+    """A trace's per-lane outputs taken back through ``inv``."""
+    return traversal.Trace(
+        carry=traversal.tree_map(lambda x: x[inv], tr.carry),
+        evals=tr.evals[inv], iters=tr.iters[inv])
 
 
 def traverse(tree: Tree, segs: Segments, predicates, callback, carry=None,
              node_mask=None, node_mask_wide=None, wide_lanes=None,
              use_range_mask: bool = False, unroll: int | None = None,
+             lane_tile: int = LANE_TILE, reorder: str = "none",
+             depth_rank=None,
              walk_index: WalkIndex | None = None) -> traversal.Trace:
     """The walk, on the device of the index.
 
     CPU tensors run the plain engine (``unroll`` default
     :data:`traversal.DEFAULT_UNROLL`); CUDA tensors launch the walk kernel
     (``unroll`` default :data:`PALLAS_UNROLL`). Arguments as in
-    :func:`repro_torch.core.traversal.traverse`, plus ``walk_index``: the
-    index's packed layout (:func:`walkpack.pack_index`, built once per
-    index), which the kernel reads and the plain engine does not.
+    :func:`repro_torch.core.traversal.traverse`, plus:
+
+    lane_tile: the kernel's threads per block (a multiple of 32 from 32 to
+        512); the plain engine has no blocks and ignores it.
+    reorder / depth_rank: the lane order, as the reference's Pallas walk
+        takes them — ``"none"``, ``"morton"`` or ``"depth"`` by
+        :func:`repro_torch.core.traversal.lane_sort_key`. The lanes are
+        permuted by a stable sort of the key before the walk (on either
+        device) and every per-lane output is put back in lane order after
+        it, so no output depends on the policy. Ignored, as by the
+        reference, where its walk falls back to its engine (no tree, or a
+        predicate or visitor the kernel does not take).
+    walk_index: the index's packed layout (:func:`walkpack.pack_index`,
+        built once per index), which the kernel reads and the plain engine
+        does not.
 
     Raises:
         NotImplementedError: on CUDA, for a predicate or visitor the kernel
             does not inline (only ``intersects`` with the three DBSCAN
             visitors), or with no tree.
-        ValueError: on CUDA, no ``walk_index``, or one packed from an index
-            of another size.
+        ValueError: an unknown ``reorder``; on CUDA, no ``walk_index``, one
+            packed from an index of another size, or a ``lane_tile`` the
+            kernel does not take.
     """
-    if segs.pts.device.type == "cpu":
+    plain_unroll = traversal.DEFAULT_UNROLL if unroll is None else unroll
+    cpu = segs.pts.device.type == "cpu"
+    if cpu and (tree is None or segs.n_segments < 2
+                or not fusible(predicates, callback)):
         return traversal.traverse(
             tree, segs, predicates, callback, carry=carry,
             node_mask=node_mask, node_mask_wide=node_mask_wide,
             wide_lanes=wide_lanes, use_range_mask=use_range_mask,
-            unroll=traversal.DEFAULT_UNROLL if unroll is None else unroll)
-    if not fusible(predicates, callback):
-        raise NotImplementedError(
-            f"the walk kernel takes intersects() with CountVisitor, "
-            f"MinLabelVisitor or CountMinLabelVisitor; got "
-            f"{type(predicates).__name__} with {type(callback).__name__}")
-    if tree is None:
-        raise NotImplementedError("the walk kernel needs a tree "
-                                  "(at least two segments)")
-    if walk_index is None:
-        raise ValueError("the walk kernel reads the index's packed layout: "
-                         "pass walk_index=walkpack.pack_index(tree, segs)")
-    if (walk_index.n_segments != segs.n_segments
-            or walk_index.pts.shape[0] != segs.n_points):
-        raise ValueError("walk: walk_index was packed from another index")
+            unroll=plain_unroll)
+    if not cpu:
+        if not fusible(predicates, callback):
+            raise NotImplementedError(
+                f"the walk kernel takes intersects() with CountVisitor, "
+                f"MinLabelVisitor or CountMinLabelVisitor; got "
+                f"{type(predicates).__name__} with "
+                f"{type(callback).__name__}")
+        if tree is None:
+            raise NotImplementedError("the walk kernel needs a tree "
+                                      "(at least two segments)")
+        if walk_index is None:
+            raise ValueError("the walk kernel reads the index's packed "
+                             "layout: pass walk_index=walkpack.pack_index("
+                             "tree, segs)")
+        if (walk_index.n_segments != segs.n_segments
+                or walk_index.pts.shape[0] != segs.n_points):
+            raise ValueError("walk: walk_index was packed from another "
+                             "index")
     (query_ids, q_arr, self_arr, dense_arr, rank_arr, external, r2,
      _) = traversal.lane_arrays(segs, predicates, use_range_mask)
+    key = traversal.lane_sort_key(reorder, query_ids, q_arr, external,
+                                  depth_rank)
+    perm = inv = None
+    if key is not None:
+        # equal keys keep lane order (a stable sort, as the reference's);
+        # the inverse is a scatter, not a second sort
+        perm = torch.argsort(key, stable=True)
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+    if cpu:
+        if perm is None:
+            return traversal.traverse(
+                tree, segs, predicates, callback, carry=carry,
+                node_mask=node_mask, node_mask_wide=node_mask_wide,
+                wide_lanes=wide_lanes, use_range_mask=use_range_mask,
+                unroll=plain_unroll)
+        # the plain engine walks the permuted batch: ids and external
+        # points, the carry and the wide lanes in the new order
+        pred = traversal.Intersects(predicates.geometry, ids=query_ids[perm],
+                                    pts=q_arr[perm] if external else None)
+        tr = traversal.traverse(
+            tree, segs, pred, callback,
+            carry=(None if carry is None
+                   else traversal.tree_map(lambda x: x[perm], carry)),
+            node_mask=node_mask, node_mask_wide=node_mask_wide,
+            wide_lanes=None if wide_lanes is None else wide_lanes[perm],
+            use_range_mask=use_range_mask, unroll=plain_unroll)
+        return _permute_trace(tr, inv)
     if carry is None:
         carry = callback.init_carry(query_ids, external, segs)
     if wide_lanes is None:
         wide_lanes = torch.zeros_like(query_ids, dtype=torch.bool)
+    lanes = (q_arr, query_ids, self_arr, dense_arr, rank_arr, wide_lanes,
+             carry.acc, carry.hits)
+    if perm is not None:
+        lanes = tuple(x[perm] for x in lanes)
+    q_arr, query_ids, self_arr, dense_arr, rank_arr, wide_lanes, acc0, \
+        hits0 = (x.contiguous() for x in lanes)
     kind = KINDS[type(callback)]
     acc, hits, evals, iters = walk(
-        kind, q=q_arr.contiguous(), qid=query_ids.contiguous(),
-        self_id=self_arr.contiguous(), dense=dense_arr.contiguous(),
-        rank=rank_arr.contiguous(), wide=wide_lanes.contiguous(),
-        acc0=carry.acc.contiguous(), hits0=carry.hits.contiguous(),
+        kind, q=q_arr, qid=query_ids, self_id=self_arr, dense=dense_arr,
+        rank=rank_arr, wide=wide_lanes, acc0=acc0, hits0=hits0,
         index=walk_index, r2=r2,
         cap=getattr(callback, "cap", INT_MAX),
         unroll=PALLAS_UNROLL if unroll is None else unroll,
+        block=int(lane_tile),
         range_r=tree.range_r if use_range_mask else None,
         node_mask=node_mask,
         node_mask_wide=node_mask_wide if node_mask is not None else None,
         vals=getattr(callback, "vals", None),
         mask=getattr(callback, "mask", None),
         mask_wide=(callback.mask_wide if kind == 1 else None))
-    return traversal.Trace(carry=traversal.AccHits(acc=acc, hits=hits),
-                           evals=evals, iters=iters)
+    tr = traversal.Trace(carry=traversal.AccHits(acc=acc, hits=hits),
+                         evals=evals, iters=iters)
+    return tr if inv is None else _permute_trace(tr, inv)

@@ -1,2 +1,3 @@
-"""Launchers of the port: ``python -m repro_torch.launch.serve`` (the
+"""Launchers of the port: ``python -m repro_torch.launch.cluster`` (the
+batch clustering CLI) and ``python -m repro_torch.launch.serve`` (the
 streaming and multi-tenant serving CLI)."""

@@ -225,13 +225,18 @@ def test_plan_cache_hit_and_shared_index():
 
 def test_auto_names_the_kernel_backend_only_on_cuda():
     # the auto tree decision is named "pallas-tree" only where the walk is
-    # the kernel: an index on a CUDA device
+    # the kernel: an index on a CUDA device; the renamed plan carries its
+    # tuner state (on the CPU auto attaches none)
     pts = pointclouds.load("blobs", 2000)
     p = dispatch.plan(pts, 0.05, 8, device="cpu")
     assert p.backend in ("fdbscan", "fdbscan-densebox")
+    assert p.tune is None
     fake = p._replace(device=torch.device("cuda", 0))
-    assert dispatch._maybe_kernel(fake, "auto").backend == "pallas-tree"
-    assert dispatch._maybe_kernel(fake, "fdbscan").backend == p.backend
+    named = dispatch._maybe_kernel(fake, "auto", 0.05, 8)
+    assert named.backend == "pallas-tree"
+    assert named.tune is not None and "tuned_config" in named.stats
+    assert dispatch._maybe_kernel(fake, "fdbscan", 0.05, 8).backend \
+        == p.backend
 
 
 # the reference's committed work counters at n = 4096

@@ -3,7 +3,8 @@
 ``chip_smoke.py`` imports JAX or the reference package, importing and
 running the port (clustering, neighbor queries, a streaming handle with a
 WAL, a checkpoint and a restore, a two-tenant server, the serving CLI,
-under the port's own collectors) loads neither, and without a CUDA device
+under the port's own collectors, a tuned plan and the clustering CLI)
+loads neither, and without a CUDA device
 the entry points refuse to run unless the caller asks for the CPU."""
 import ast
 import os
@@ -109,6 +110,25 @@ def test_running_the_port_loads_neither_jax_nor_the_reference():
         stats = cli.main(["--device", "cpu", "--n", "400", "--steps", "4",
                           "--tenants", "a:0.05:5,b:0.1:3", "--validate"])
         assert stats["steps"] == 4
+        from repro_torch.core import dispatch, tune
+        from repro_torch.launch import cluster
+        os.environ["REPRO_TUNE"] = "search"
+        p = dispatch.plan(pts, 0.05, 5, algorithm="pallas-tree",
+                          device="cpu")
+        assert p.tune.config.source == "search"
+        res = repro_torch.dbscan(pts, 0.05, 5, query_plan=p)
+        assert p.tune.depth_rank is not None and res.n_clusters > 0
+        del os.environ["REPRO_TUNE"]
+        assert tune.mode() == "heuristic"
+        dispatch.clear_cache()          # the plan LRU holds the search's
+        out = cluster.main(["--data", "blobs", "-n", "300", "--eps", "0.05",
+                            "--minpts", "5", "--algorithm", "pallas-tree",
+                            "--device", "cpu"])
+        assert out["tuned_config"]["source"] == "heuristic"
+        out = cluster.main(["--data", "blobs", "-n", "300", "--eps", "0.05",
+                            "--minpts", "5", "--algorithm", "gdbscan",
+                            "--device", "cpu"])
+        assert out["n_clusters"] > 0
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not bad, bad
@@ -159,6 +179,12 @@ def test_no_cuda_and_no_device_raises(monkeypatch):
     with pytest.raises(SystemExit) as ei:
         cli.main(["--n", "64"])
     assert ei.value.code == 2
+    from repro_torch.launch import cluster
+    with pytest.raises(SystemExit) as ei:
+        cluster.main(["--eps", "0.1", "--minpts", "3"])
+    assert ei.value.code == 2
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.core.gdbscan(pts, 0.1, 3)
     snap = serve.freeze(repro_torch.stream_handle(pts, 0.1, 3, device="cpu"))
     assert snap.device.type == "cpu" and snap.query(pts).labels.shape == (50,)
     assert repro_torch.dbscan(pts, 0.1, 3, device="cpu").labels.shape == (50,)

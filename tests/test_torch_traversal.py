@@ -9,6 +9,8 @@ steps with the same float32 roundings. The walk kernel itself
 (``csrc/walk.cu``) performs these steps one thread per lane and is held
 against this plain engine on the card by ``chip_smoke.py``.
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -256,3 +258,125 @@ def test_index_from_numpy_round_trip(indexes):
         index_from_numpy({**{f: np.asarray(getattr(jsegs, f))
                              for f in jsegs._fields},
                           "pts": np.zeros((3, 3), np.float16)}, None, CPU)
+
+
+# --------------------------------------------------------------------- #
+# the reference's public helpers over the walk (its traversal.py names)  #
+# --------------------------------------------------------------------- #
+
+def _helper_inputs(segs, seed):
+    """numpy labels, gather mask and active-query mask for the helpers."""
+    n = segs.n_points
+    rng = np.random.default_rng(seed)
+    labels = rng.permutation(n).astype(np.int32)
+    return labels, rng.random(n) < 0.6, rng.random(n) < 0.7
+
+
+@pytest.mark.parametrize("key", sorted(INDEXES))
+def test_helpers_match_reference(indexes, key):
+    # count_neighbors(_with_work), minlabel_sweep, fused_count_minlabel and
+    # border_gather with the reference's signatures, byte-equal (results,
+    # hits, evals; the fused pass's iters at the same unroll) on one index
+    (jsegs, jtree), (segs, tree), eps, mp = indexes[key]
+    labels, gather, active = _helper_inputs(segs, 7)
+    t = torch.from_numpy
+    jl, jg, ja = jnp.asarray(labels), jnp.asarray(gather), jnp.asarray(active)
+    for cap, qa in ((mp, None), (INT_MAX, active)):
+        want, wev = jtraversal.count_neighbors_with_work(
+            jtree, jsegs, eps, cap, None if qa is None else ja)
+        got, gev = traversal.count_neighbors_with_work(
+            tree, segs, eps, cap, None if qa is None else t(qa))
+        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+        np.testing.assert_array_equal(np.asarray(wev), gev.numpy())
+        np.testing.assert_array_equal(
+            np.asarray(jtraversal.count_neighbors(jtree, jsegs, eps, cap)),
+            traversal.count_neighbors(tree, segs, eps, cap).numpy())
+    for fn in ("minlabel_sweep", "border_gather"):
+        want = getattr(jtraversal, fn)(jtree, jsegs, eps, jl, jg, ja)
+        got = getattr(traversal, fn)(tree, segs, eps, t(labels), t(gather),
+                                     t(active))
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(np.asarray(w), g.numpy())
+    ids = np.where(active, np.arange(segs.n_points), -1).astype(np.int32)
+    want = jtraversal.fused_count_minlabel(
+        jtree, jsegs, eps, jl, jg, jnp.asarray(ids), cap=mp - 1)
+    got = traversal.fused_count_minlabel(tree, segs, eps, t(labels),
+                                         t(gather), t(ids), cap=mp - 1)
+    _assert_trace_equal(want, got, iters_too=True)
+    # through the walk entry at the kernel's unroll, lanes in depth order
+    want = jtraversal.fused_count_minlabel(
+        jtree, jsegs, eps, jl, traverse_fn=jkt.traverse,
+        depth_rank=jnp.asarray(labels))
+    got = traversal.fused_count_minlabel(
+        tree, segs, eps, t(labels),
+        traverse_fn=lambda *a, **k: kt.traverse(*a, unroll=4, reorder="depth",
+                                                **k),
+        depth_rank=t(labels))
+    _assert_trace_equal(want, got, iters_too=True)
+
+
+def test_tree_and_unionfind_names_match_reference(indexes):
+    from repro.core import unionfind as junionfind
+    from repro_torch.core import unionfind
+    (jsegs, jtree), (segs, tree), _, _ = indexes["hacc3d"]
+    assert tree.n_leaves == jtree.n_leaves == segs.n_segments
+    assert tree.leaf_id(3) == jtree.leaf_id(3)
+    node = np.array([-5, 0, 3, tree.n_leaves - 2, 10**6], np.int32)
+    np.testing.assert_array_equal(
+        np.asarray(jtraversal.tree_left(jtree, jnp.asarray(node))),
+        traversal.tree_left(tree, torch.from_numpy(node)).numpy())
+    rng = np.random.default_rng(2)
+    forest = np.array([rng.integers(0, i + 1) for i in range(300)], np.int64)
+    np.testing.assert_array_equal(junionfind.jump_to_fixpoint_np(forest),
+                                  unionfind.jump_to_fixpoint_np(forest))
+    assert kt.LANE_TILE == jkt.LANE_TILE == 128
+    assert [c.__name__ for c in kt.FUSIBLE_VISITORS] == [
+        c.__name__ for c in jkt.FUSIBLE_VISITORS]
+
+
+GOLDEN = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "golden", "golden.npz"))
+# (dataset, n, eps, min_pts) — the scenarios of tests/golden/make_golden.py
+GOLDEN_SCENARIOS = [
+    ("ngsim_like", 800, 0.01, 5),
+    ("portotaxi_like", 800, 0.02, 5),
+    ("road3d_like", 800, 0.01, 5),
+    ("hacc_like", 800, 0.05, 5),
+    ("blobs", 800, 0.05, 8),
+]
+
+
+@pytest.mark.parametrize("case", GOLDEN_SCENARIOS,
+                         ids=[c[0] for c in GOLDEN_SCENARIOS])
+def test_golden_counts(case):
+    # exact uncapped neighbor counts over the plain fdbscan plan, in the
+    # original point order (the reference's tests/test_golden.py case)
+    from repro_torch.core import dispatch
+    dset, n, eps, mp = case
+    p = dispatch.plan(pointclouds.load(dset, n), eps, mp,
+                      algorithm="fdbscan", device=CPU)
+    counts = np.zeros(n, np.int64)
+    counts[p.segs.order.numpy()] = traversal.count_neighbors(
+        p.tree, p.segs, eps, cap=INT_MAX).numpy()
+    np.testing.assert_array_equal(counts, GOLDEN[f"{dset}/counts"])
+
+
+@pytest.mark.parametrize("case", GOLDEN_SCENARIOS,
+                         ids=[c[0] for c in GOLDEN_SCENARIOS])
+def test_golden_stream(case):
+    # bootstrap with 5/8 of the points, two inserts, a merge, a snapshot:
+    # the reference's tests/test_golden.py stream case
+    import repro_torch
+    dset, n, eps, mp = case
+    pts = pointclouds.load(dset, n)
+    cut = n * 5 // 8
+    h = repro_torch.stream_handle(pts[:cut], eps, mp, device=CPU)
+    h.insert(pts[cut:cut + (n - cut) // 2])
+    h.insert(pts[cut + (n - cut) // 2:])
+    h.merge()
+    res = h.snapshot()
+    np.testing.assert_array_equal(res.labels.numpy(),
+                                  GOLDEN[f"{dset}/stream/labels"])
+    np.testing.assert_array_equal(res.core_mask.numpy(),
+                                  GOLDEN[f"{dset}/stream/core"])
+    assert res.n_clusters == int(GOLDEN[f"{dset}/stream/n_clusters"])

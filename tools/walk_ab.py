@@ -37,6 +37,18 @@ times only these. ``--out FILE`` writes the result; ``--expect FILE``
 (another tree's ``--out``) exits 1 unless every k-NN digest equals that
 file's, so parent and change are held equal as they are timed.
 
+``--only tune`` times the tuner's schedules on the two walk scenarios:
+with a tree that has ``repro_torch.core.tune``, the plan's warm run under
+the pin (``off``: block 128, launch order) and under the card's heuristic
+with the first pass and sweeps in launch order (``none``) and in depth
+order (``depth``, calibrated by a cold run), in turns, ``--reps`` rounds:
+``cluster_ms``, the first pass and first sweep (CUDA events), and one
+profiled run each for ``walk_device_ms`` and ``busy_device_ms``; then the
+first pass alone at every lane tile in both orders (``first_pass_by_tile``,
+median of ``--reps``). A tree without the tuner times its default plan
+only (``default``), the parent's side of the comparison. Every schedule's
+labels are held equal to the first's.
+
 Prints the card's name and power limit and one line ``[times] {json}``
 with the medians and every sample.
 
@@ -185,6 +197,87 @@ def scenario(port, fdbscan, pointclouds, dset, n, eps, mp, reps: int):
     return out
 
 
+def _tuned(tune, fp: str, sw: str, lane_tile: int = 128):
+    """A TuneState running the kernel in every phase at (lane_tile, 4),
+    the first pass in order ``fp``, the sweeps in ``sw``, the border in
+    launch order."""
+    return tune.TuneState(tune.TunedConfig(
+        first_pass=tune.PhaseConfig("pallas", lane_tile, 4, fp),
+        sweep=tune.PhaseConfig("pallas", 128, 4, sw),
+        border=tune.PhaseConfig("pallas", 128, 4, "none"),
+        source="heuristic"))
+
+
+def tune_scenario(port, fdbscan, pointclouds, dset, n, eps, mp,
+                  reps: int) -> dict:
+    """The tuner's schedules on one scenario, in turns (see the module
+    docstring)."""
+    try:
+        tune = importlib.import_module("repro_torch.core.tune")
+    except ImportError:
+        tune = None
+    dev = torch.device("cuda", 0)
+    pts = pointclouds.load(dset, n)
+    timer = WalkTimer(fdbscan)
+    plan = port.plan(pts, eps, mp, device=dev)
+    if tune is None:
+        plans = {"default": plan}
+    else:
+        plans = {"off": plan._replace(tune=tune.TuneState(tune.PINNED)),
+                 "none": plan._replace(tune=_tuned(tune, "none", "none")),
+                 "depth": plan._replace(tune=_tuned(tune, "depth", "depth"))}
+    first = {}
+    for name, p in plans.items():           # cold runs (and calibration)
+        res = port.dbscan(pts, eps, mp, query_plan=p)
+        first[name] = res
+    ref = next(iter(first.values()))
+    for name, res in first.items():
+        if not (torch.equal(res.labels, ref.labels)
+                and torch.equal(res.core_mask, ref.core_mask)
+                and res.n_sweeps == ref.n_sweeps):
+            sys.exit(f"walk_ab: {dset} schedule {name} changed the result")
+    samples = {name: {"cluster_ms": [], **{k: [] for k in TIMED.values()}}
+               for name in plans}
+    for _ in range(reps):
+        for name, p in plans.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res, walks = timer.run(
+                lambda: port.dbscan(pts, eps, mp, query_plan=p))
+            end.record()
+            torch.cuda.synchronize()
+            samples[name]["cluster_ms"].append(start.elapsed_time(end))
+            for k, v in walks.items():
+                samples[name][k].append(v)
+    out = {}
+    for name, p in plans.items():
+        def run(p=p):
+            return port.dbscan(pts, eps, mp, query_plan=p)
+        out[name] = {k: statistics.median(v)
+                     for k, v in samples[name].items()}
+        out[name].update(walk_device_ms=device_ms(run, 1, "walk_kernel"),
+                         busy_device_ms=device_ms(run, 1),
+                         samples=samples[name])
+    if tune is not None:
+        by_tile = {}
+        rank = plans["depth"].tune.depth_rank
+        for _ in range(reps):
+            for lane_tile in tune.TUNE_LANE_TILES:
+                for order in ("none", "depth"):
+                    st = _tuned(tune, order, "none", lane_tile)
+                    st.depth_rank = rank
+                    p = plan._replace(tune=st)
+                    _, walks = timer.run(
+                        lambda: port.dbscan(pts, eps, mp, query_plan=p))
+                    by_tile.setdefault(f"{lane_tile}/{order}", []).append(
+                        walks[TIMED[0]])
+        out["first_pass_by_tile"] = {k: statistics.median(v)
+                                     for k, v in by_tile.items()}
+        out["first_pass_by_tile_samples"] = by_tile
+    return out
+
+
 def _tile_shape(pairwise, nq: int, nr: int, d: int) -> dict:
     g = torch.Generator(device="cpu").manual_seed(1)
     x = torch.rand(max(nq, nr), d, generator=g).to("cuda")
@@ -307,9 +400,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True, help="the tree's src directory")
     ap.add_argument("--reps", type=int, default=7)
-    ap.add_argument("--only", choices=["tiles", "knn"],
-                    help="time only the tile kernels and the tiled path, or "
-                         "only the k-NN kernel")
+    ap.add_argument("--only", choices=["tiles", "knn", "tune"],
+                    help="time only the tile kernels and the tiled path, "
+                         "only the k-NN kernel, or only the tuner's "
+                         "schedules")
     ap.add_argument("--out", help="write the result as JSON to this file")
     ap.add_argument("--expect", help="a result of another tree (--out): "
                                      "exit 1 unless the k-NN digests equal")
@@ -322,15 +416,18 @@ def main() -> None:
     for dset, n, eps, mp in MAIN if a.only is None else []:
         out[dset] = scenario(port, fdbscan, pointclouds, dset, n, eps, mp,
                              a.reps)
-    if a.only != "knn":
+    for dset, n, eps, mp in MAIN if a.only == "tune" else []:
+        out[dset] = tune_scenario(port, fdbscan, pointclouds, dset, n, eps,
+                                  mp, a.reps)
+    if a.only in (None, "tiles"):
         out["tiles"] = tiles(port, a.reps)
-    if a.only != "tiles":
+    if a.only in (None, "knn"):
         out["knn"] = knn(a.reps)
     print("[times] " + json.dumps(out), flush=True)
     if a.out:
         with open(a.out, "w") as f:
             json.dump(out, f)
-    if a.expect:
+    if a.expect and "knn" in out:
         with open(a.expect) as f:
             want = json.load(f)["knn"]
         differ = [name for name, v in out["knn"].items()
