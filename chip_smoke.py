@@ -17,11 +17,16 @@ checkpoint, queries, a snapshot and a restore; the serving plane,
 concurrent inserts and queries, then a restore, and its CLI,
 ``python -m repro_torch.launch.serve``; the tuned ``pallas-tree`` path on
 both scenarios under ``REPRO_TUNE`` = off, heuristic and search; the
-clustering CLI, ``python -m repro_torch.launch.cluster``, and the
-``gdbscan`` baseline — checks the results
+distributed path, ``repro_torch.distributed``: the sharded tree path
+(``tree_dbscan_sharded``) on the hacc scenario over 8 shards of a local
+mesh, the dense ring (``ring_dbscan``) over 8, and both over a gloo group
+of two ranks in processes of their own on the one card; the
+clustering CLI, ``python -m repro_torch.launch.cluster`` (``ring``
+among its algorithms), and the ``gdbscan`` baseline — checks the results
 against a second backend and numpy oracles, shows that every walk and tile
-of each path ran as a kernel, holds the streaming index on the card
-against the same index on the host at small sizes, and validates the
+of each path ran as a kernel, holds the streaming index and the sharded
+path on the card against the same calls on the host at small sizes
+(every walk of the sharded runs against the host's), and validates the
 metrics and trace of an instrumented clustering run
 (``repro_torch.obs``).
 
@@ -64,12 +69,9 @@ from repro_torch.data import pointclouds  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.kernels import knn as kknn, pairwise, ref  # noqa: E402
 from repro_torch.kernels import traverse as kt, walkpack  # noqa: E402
+from repro_torch.launch import mesh as lmesh, roofline  # noqa: E402
 
 DEV = torch.device("cuda", 0)
-# H100 SXM published peaks (NVIDIA data sheet): HBM rate and float32 rate
-# outside the tensor cores; every bound below is against these.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
 
 # The repo's phase-cost scenarios (benchmarks/bench_phase_cost.py) at full
 # scale, eps scaled from n = 16,384 so the neighbourhood size stays the same:
@@ -169,6 +171,32 @@ GOLDEN_SCENARIOS = [("ngsim_like", 800, 0.01, 5),
 # n x n adjacency) at (n, eps, min_pts) on boundary-separated 3-D points
 CLUSTER_CLI = ("hacc_like", 262_144, 0.0119, 5)
 CLUSTER_GDBSCAN = (4096, 0.08, 5)
+# the distributed path (repro_torch.distributed). [sharded]: the hacc
+# scenario at full size on a local mesh of SHARDED_P shards on the card.
+SHARDED = MAIN[0]
+SHARDED_P = 8
+# [sharded-check]: the card's local mesh against the same call on the host
+# (the walks' plain versions), uniform points, (d, eps) at min_pts 5 (about
+# three neighbours a point: a third of the points core, in some 200 to
+# 260 clusters, 6 to 9 sweeps; the host's plain walks are most of the
+# phase), at every shard count; and a mesh so wide for its n that its
+# last shard holds only sentinel rows: (n, P, eps a d)
+SHARDED_CHECK_N = 4096
+SHARDED_CHECK = [(2, 0.0153), (3, 0.0559)]
+SHARDED_CHECK_P = (1, 2, 3, 8)
+SHARDED_WIDE = (100, 16, {2: 0.15, 3: 0.25})
+# [ring]: the dense ring at RING_P shards on points of an integer lattice
+# (exact distances in every arithmetic form), (n, d, lattice side, eps,
+# min_pts): about 4.6 neighbours a point. n = 524,288 ran in 9.2 s (46
+# sweeps; H100 80GB HBM3, 700 W); the tiles grow as n^2, so the next
+# doubling would take about 37 s, over the phase's 30 s.
+RING_P = 8
+RING = (524_288, 2, 2048, 3.5, 5)
+# [mesh-group]: two ranks of a gloo group on the one card, each in a
+# process of its own, against the local mesh at the same shard count; the
+# hacc scenario at 65,536 points, eps scaled to keep its neighbourhood
+MESH_GROUP = ("hacc_like", 65_536, 0.0189, 5)
+MESH_GROUP_RANKS = 2
 
 
 def check(ok: bool, what: str) -> None:
@@ -318,9 +346,18 @@ def nbytes(*tensors) -> int:
 
 
 def bound(n_bytes: float, n_ops: float):
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for ``n_bytes`` of memory traffic and ``n_ops`` float32 operations,
+    against the H100 SXM's published peaks (``launch.mesh``: HBM rate and
+    float32 rate outside the tensor cores) through
+    ``launch.roofline.roofline_terms``."""
+    t = roofline.roofline_terms(
+        {"flops": n_ops, "bytes accessed": n_bytes}, {"total": 0},
+        peak_flops=lmesh.PEAK_FLOPS_FP32, hbm_bw=lmesh.HBM_BW,
+        ici_bw=lmesh.NVLINK_BW)
+    if t["t_memory_s"] >= t["t_compute_s"]:
+        return t["t_memory_s"] * 1e3, "bytes"
+    return t["t_compute_s"] * 1e3, "operations"
 
 
 def separated(n: int, d: int, eps: float, seed: int) -> np.ndarray:
@@ -2619,6 +2656,25 @@ def phase_cluster_cli(workdir: str) -> None:
         say("cluster-cli", algorithm=algorithm, n=n, backend=want.backend,
             n_clusters=want.n_clusters, rc=run.returncode,
             seconds=f"{time.perf_counter() - t0:.1f}", ok=True)
+    out = os.path.join(workdir, "ring.npy")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.cluster", "--data", dset,
+         "-n", str(n), "--eps", str(eps), "--minpts", str(mp),
+         "--algorithm", "ring", "--out", out], env=env, cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0, f"cluster CLI ring exited {run.returncode}:"
+          f"\n{run.stdout[-2000:]}{run.stderr[-4000:]}")
+    for ln in run.stdout.strip().splitlines():
+        print(f"[cluster-cli] {ln}", flush=True)
+    from repro_torch.distributed.ring_dbscan import ring_dbscan
+    want = ring_dbscan(pts, eps, mp)
+    check(np.array_equal(np.load(out), want.labels.cpu().numpy()),
+          "cluster CLI ring: labels differ from ring_dbscan in this process")
+    say("cluster-cli", algorithm="ring", n=n, backend=want.backend,
+        n_clusters=want.n_clusters, n_sweeps=want.n_sweeps,
+        rc=run.returncode, seconds=f"{time.perf_counter() - t0:.1f}",
+        ok=True)
     gn, geps, gmp = CLUSTER_GDBSCAN
     x = separated(gn, 3, geps, seed=8)
     t0 = time.perf_counter()
@@ -2639,6 +2695,358 @@ def phase_cluster_cli(workdir: str) -> None:
         seconds=f"{g_s:.2f}", vs="dbscan_bruteforce_np", ok=True)
 
 
+# --------------------------------------------------------------------- #
+# the distributed path: sharded tree, dense ring, group mesh             #
+# --------------------------------------------------------------------- #
+
+@contextlib.contextmanager
+def recorded_walks(log: list):
+    """Record every walk the distributed path makes through
+    ``kernels.traverse.traverse``: its lane inputs and outputs, on the
+    host."""
+    real = kt.traverse
+
+    def rec(tree, segs, pred, cb, carry=None, **kw):
+        tr = real(tree, segs, pred, cb, carry=carry, **kw)
+        root = kw.get("root")
+        log.append(dict(
+            kind=type(cb).__name__, q=pred.pts.cpu(),
+            root=None if root is None else root.cpu(),
+            acc0=None if carry is None else carry.acc.cpu(),
+            acc=tr.acc.cpu(), hits=tr.hits.cpu(), evals=tr.evals.cpu()))
+        return tr
+    kt.traverse = rec
+    try:
+        yield log
+    finally:
+        kt.traverse = real
+
+
+def _same_walks(card: list, host: list, what: str) -> int:
+    """Each of the card's walks (the walk kernel) against the host's walk
+    at the same point of the same protocol (the plain engine): equal
+    inputs, then equal acc, hits and evals."""
+    check(len(card) == len(host), f"{what}: {len(card)} walks on the card, "
+                                  f"{len(host)} on the host")
+    for i, (a, b) in enumerate(zip(card, host)):
+        for key in ("kind", "q", "root", "acc0", "acc", "hits", "evals"):
+            x, y = a[key], b[key]
+            same = (x == y if not isinstance(x, torch.Tensor) else
+                    x.dtype == y.dtype and torch.equal(x, y))
+            check(same, f"{what}: walk {i} ({a['kind']}): {key} differs "
+                        f"between the walk kernel and the plain engine")
+    return len(card)
+
+
+def lattice(n: int, d: int, g: int, seed: int) -> np.ndarray:
+    """n points drawn (with repeats) from the integer lattice [0, g)^d, as
+    float32. Below g = 2048 at d = 2 every squared distance is an exact
+    integer in both arithmetic forms (the walk's sum of squared differences
+    and the tiles' norm form, whose norms stay below 2^24), so with a
+    non-integer eps^2 no pair can round across the boundary: the tiled and
+    tree backends must agree exactly. (Uniform points separated by a band
+    of eps^2 do not do at large n: the norm form's rounding error is
+    about an ulp of |q|^2 + |r|^2, several per cent of a small eps^2.)"""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, g, size=(n, d)).astype(np.float32)
+
+
+def _sentinel_tiles() -> float:
+    """Both tile kernels against their plain versions on blocks padded with
+    sentinel rows (1e30), as the ring's trailing shard holds them: real
+    queries against padded references, sentinel-only blocks both ways.
+    Their squares overflow to inf and the norm form gives NaN; every
+    comparison must stay false."""
+    err = 0.0
+    g = torch.Generator(device="cpu").manual_seed(21)
+    for d in (2, 3):
+        real = torch.rand(400, d, generator=g)
+        pad = torch.full((113, d), 1e30)
+        blocks = [torch.cat([real, pad]), pad[:64], real[:7]]
+        for q in blocks:
+            for r in blocks:
+                lab = torch.randint(0, 1000, (r.shape[0],), generator=g,
+                                    dtype=torch.int32)
+                mask = torch.rand(r.shape[0], generator=g) < 0.7
+                qc, rc = q.to(DEV), r.to(DEV)
+                got = [pairwise.pairwise_count(qc, rc, 0.05),
+                       *pairwise.pairwise_minlabel(qc, rc, lab.to(DEV),
+                                                   mask.to(DEV), 0.05)]
+                want = [ref.pairwise_count_ref(q, r, 0.05),
+                        *ref.pairwise_minlabel_ref(q, r, lab, mask, 0.05)]
+                e = max_abs_err([(a.cpu(), b) for a, b in zip(got, want)])
+                check(e == 0.0, f"tiles on sentinel-padded blocks d={d} "
+                                f"({q.shape[0]} x {r.shape[0]}): the "
+                                f"kernels differ from the plain versions")
+                err = max(err, e)
+    return err
+
+
+def phase_sharded_check() -> float:
+    """The sharded tree path on the card's local mesh against the same call
+    on the host (the walks' plain versions): labels, core mask, n_sweeps
+    and distance_evals byte-equal, and every walk of the run held against
+    the host's walk at the same point of the protocol (the walk kernel on
+    a forest of shards, against the plain engine). Then the tile kernels
+    on sentinel-padded blocks. Launches here do not count."""
+    from repro_torch.distributed import ring_dbscan as rd, sharding
+    rng = np.random.default_rng(17)
+    cases = []
+    for d, eps in SHARDED_CHECK:
+        pts = rng.uniform(0, 1, (SHARDED_CHECK_N, d)).astype(np.float32)
+        cases += [(pts, eps, p) for p in SHARDED_CHECK_P]
+    n_wide, p_wide, eps_wide = SHARDED_WIDE
+    for d in (2, 3):
+        pts = rng.uniform(0, 1, (n_wide, d)).astype(np.float32)
+        cases.append((pts, eps_wide[d], p_wide))
+    n_walks = 0
+    for pts, eps, p in cases:
+        n, d = pts.shape
+        card_log, host_log = [], []
+        with recorded_walks(card_log):
+            a, sa = rd.tree_dbscan_sharded(pts, eps, 5,
+                                           mesh=sharding.LocalMesh(p),
+                                           with_stats=True)
+        with recorded_walks(host_log):
+            b, sb = rd.tree_dbscan_sharded(pts, eps, 5,
+                                           mesh=sharding.LocalMesh(p),
+                                           with_stats=True, device="cpu")
+        what = f"sharded n={n} d={d} P={p}"
+        check(a.labels.device.type == "cuda", f"{what}: ran off the card")
+        check(torch.equal(a.labels.cpu(), b.labels)
+              and torch.equal(a.core_mask.cpu(), b.core_mask)
+              and (a.n_clusters, a.n_sweeps) == (b.n_clusters, b.n_sweeps)
+              and sa == sb, f"{what}: the card differs from the host "
+                            f"({sa} vs {sb})")
+        n_walks += _same_walks(card_log, host_log, what)
+        say("sharded-check", n=n, d=d, P=p, n_sweeps=a.n_sweeps,
+            n_clusters=a.n_clusters, distance_evals=sa["distance_evals"],
+            walks=len(card_log), sentinel_only_shards=(
+                sa["n_pad"] - n) // (sa["n_pad"] // p), ok=True)
+    err = _sentinel_tiles()
+    say("sharded-check", walks_held=n_walks, tiles_on_sentinels="exact",
+        ok=True)
+    return err
+
+
+def _sharded_once(pts, eps, mp, p):
+    from repro_torch.distributed import ring_dbscan as rd, sharding
+    return rd.tree_dbscan_sharded(pts, eps, mp, mesh=sharding.LocalMesh(p),
+                                  with_stats=True)
+
+
+def run_sharded() -> dict:
+    """[sharded]: tree_dbscan_sharded at full size on SHARDED_P shards of a
+    local mesh on the card; a cold run, then a warm one timed by CUDA
+    events (each builds its shards' indexes, as the reference's does).
+    The index build alone is timed apart, on the host clock after a
+    synchronise."""
+    from repro_torch.distributed import ring_dbscan as rd, sharding
+    dset, n, eps, mp = SHARDED
+    pts = pointclouds.load(dset, n)
+    res, st = _sharded_once(pts, eps, mp, SHARDED_P)        # cold
+    before = counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res, st = _sharded_once(pts, eps, mp, SHARDED_P)
+    end.record()
+    torch.cuda.synchronize()
+    warm_ms = start.elapsed_time(end)
+    one = {k: v - before[k] for k, v in counts().items()}
+    # the index build of one run: every shard's LBVH, the forest, its
+    # packed layout
+    mesh = sharding.LocalMesh(SHARDED_P)
+    x = repro_torch.core.dispatch.as_points(pts, DEV)
+    pts_pad, _, n_pad = rd._pad(x, SHARDED_P)
+    prog = rd.ShardedProgram(mesh, "data", n, n_pad, eps, mp)
+    local = rd._slabs(mesh, "data", pts_pad, prog.n_loc)
+    _, valid = prog.slab_ids(DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rd.Forest([rd.ShardIndex(a, v) for a, v in zip(local, valid)])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    wire = roofline.collective_wire_bytes(mesh.collectives, SHARDED_P)
+    say("sharded", dataset=dset, n=n, d=pts.shape[1], eps=eps, min_pts=mp,
+        shards=SHARDED_P, warm_ms=f"{warm_ms:.1f}",
+        index_build_s=f"{build_s:.3f}", n_sweeps=st["n_sweeps"],
+        n_clusters=res.n_clusters, distance_evals=st["distance_evals"],
+        ring_distance_evals=st["ring_distance_evals"],
+        evals_share_of_ring=f"{st['distance_evals'] / st['ring_distance_evals']:.3g}",
+        walk_launches_a_run=one["walk"],
+        plain_walks_a_run=one["plain_walk_runs"])
+    return dict(pts=pts, res=res, stats=st, warm_ms=warm_ms,
+                build_s=build_s, one=one, wire=wire)
+
+
+def check_sharded(out: dict, seen: dict) -> None:
+    """[sharded]'s result against single-device fdbscan on the card: core
+    mask byte-equal and the same partition of the core points."""
+    dset, n, eps, mp = SHARDED
+    check(seen["walk"] > 0 and seen["plain_walk_runs"] == 0,
+          f"sharded: {seen['walk']} walk launches, "
+          f"{seen['plain_walk_runs']} plain walks")
+    res = out["res"]
+    check_result(res, n, "sharded")
+    check(res.backend == "sharded", f"sharded: backend {res.backend}")
+    ref_res = repro_torch.dbscan(out["pts"], eps, mp, algorithm="fdbscan")
+    check(torch.equal(res.core_mask, ref_res.core_mask),
+          "sharded: core mask differs from single-device fdbscan")
+    check(same_core_partition(res, ref_res),
+          "sharded: core partition differs from single-device fdbscan")
+    check(out["stats"]["distance_evals"] * 5
+          < out["stats"]["ring_distance_evals"],
+          "sharded: the tree path did not beat the ring's work by 5x")
+    say("check", path="sharded", vs="fdbscan (single device)", ok=True,
+        core=int(res.core_mask.sum()), n_clusters=res.n_clusters)
+
+
+def run_ring() -> dict:
+    """[ring]: ring_dbscan at RING_P shards of a local mesh on the card
+    (both tile kernels), RING's lattice points."""
+    from repro_torch.distributed import ring_dbscan as rd, sharding
+    n, d, g, eps, mp = RING
+    pts = lattice(n, d, g, seed=23)
+    mesh = sharding.LocalMesh(RING_P)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = rd.ring_dbscan(pts, eps, mp, mesh=mesh)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    say("ring", n=n, d=d, lattice=g, eps=eps, min_pts=mp, shards=RING_P,
+        ms=f"{ms:.1f}", n_sweeps=res.n_sweeps, n_clusters=res.n_clusters,
+        wire_bytes=roofline.collective_wire_bytes(mesh.collectives,
+                                                  RING_P)["total"])
+    return dict(pts=pts, res=res, ms=ms)
+
+
+def check_ring(out: dict, seen: dict) -> None:
+    """[ring]'s launches (a count tile a shard a step, a min-label tile a
+    shard a step of every sweep and the border pass) and its result
+    against single-device fdbscan on the card."""
+    n, d, _, eps, mp = RING
+    res = out["res"]
+    steps = RING_P * RING_P
+    check(seen["pairwise_count"] == steps
+          and seen["pairwise_minlabel"] == steps * (res.n_sweeps + 1),
+          f"ring: {seen['pairwise_count']} count and "
+          f"{seen['pairwise_minlabel']} min-label launches for "
+          f"{res.n_sweeps} sweeps on {RING_P} shards")
+    check(seen["walk"] == 0 and seen["plain_walk_runs"] == 0,
+          "ring: a walk ran on the dense ring")
+    check_result(res, n, "ring")
+    ref_res = repro_torch.dbscan(out["pts"], eps, mp, algorithm="fdbscan")
+    check(same_core_partition(res, ref_res),
+          "ring: core mask or core partition differs from single-device "
+          "fdbscan")
+    say("check", path="ring", vs="fdbscan (single device)", ok=True,
+        count_launches=seen["pairwise_count"],
+        minlabel_launches=seen["pairwise_minlabel"])
+
+
+def mesh_group_worker(rank: int, workdir: str) -> None:
+    """One rank of [mesh-group]: a gloo group of MESH_GROUP_RANKS processes
+    on the one card (NCCL refuses two ranks on one device, so the group
+    mesh stages its collectives through host buffers); the sharded path
+    and the dense ring on the group mesh; results and this process's
+    launch counts to ``workdir``."""
+    import torch.distributed as dist
+    from repro_torch.distributed import ring_dbscan as rd
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store",
+                            world_size=MESH_GROUP_RANKS, rank=rank)
+    dset, n, eps, mp = MESH_GROUP
+    pts = pointclouds.load(dset, n)
+    mesh = lmesh.make_host_mesh()
+    reset_counts()
+    res, st = rd.tree_dbscan_sharded(pts, eps, mp, mesh=mesh,
+                                     with_stats=True)
+    ring = rd.ring_dbscan(pts, eps, mp, mesh=mesh)
+    torch.cuda.synchronize()
+    c = counts()
+    np.savez(os.path.join(workdir, f"rank{rank}.npz"),
+             labels=res.labels.cpu().numpy(),
+             core=res.core_mask.cpu().numpy(),
+             meta=np.asarray([res.n_clusters, res.n_sweeps,
+                              st["distance_evals"], st["ring_distance_evals"],
+                              st["n_pad"]], np.int64),
+             ring_labels=ring.labels.cpu().numpy(),
+             ring_core=ring.core_mask.cpu().numpy(),
+             ring_meta=np.asarray([ring.n_clusters, ring.n_sweeps]),
+             counts=np.asarray([c["walk"], c["plain_walk_runs"],
+                                c["pairwise_count"], c["pairwise_minlabel"]]),
+             device=np.asarray(str(res.labels.device)),
+             mesh=np.asarray(type(mesh).__name__ + " " + mesh.backend))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_mesh_group(workdir: str) -> dict:
+    """[mesh-group]: MESH_GROUP_RANKS processes, one shard each, against
+    the local mesh at the same shard count in this process: labels, core,
+    n_sweeps and the statistics byte-equal, the ring's too. Returns the
+    ranks' summed launch counts (they add to the kernel line's)."""
+    from repro_torch.distributed import ring_dbscan as rd, sharding
+    dset, n, eps, mp = MESH_GROUP
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--mesh-group-rank", str(r), "--mesh-group-dir", workdir],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(MESH_GROUP_RANKS)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"mesh-group rank {r} exited "
+                                 f"{p.returncode}:\n{log[-4000:]}")
+    group_s = time.perf_counter() - t0
+    pts = pointclouds.load(dset, n)
+    mesh = sharding.LocalMesh(MESH_GROUP_RANKS)
+    want, st = rd.tree_dbscan_sharded(pts, eps, mp, mesh=mesh,
+                                      with_stats=True)
+    ring = rd.ring_dbscan(pts, eps, mp,
+                          mesh=sharding.LocalMesh(MESH_GROUP_RANKS))
+    total = np.zeros(4, np.int64)
+    for r in range(MESH_GROUP_RANKS):
+        got = np.load(os.path.join(workdir, f"rank{r}.npz"))
+        check(str(got["device"]).startswith("cuda")
+              and str(got["mesh"]) == "GroupMesh gloo",
+              f"mesh-group rank {r}: ran on {got['device']} over "
+              f"{got['mesh']}")
+        check(np.array_equal(got["labels"], want.labels.cpu().numpy())
+              and np.array_equal(got["core"], want.core_mask.cpu().numpy())
+              and got["meta"].tolist() == [
+                  want.n_clusters, want.n_sweeps, st["distance_evals"],
+                  st["ring_distance_evals"], st["n_pad"]],
+              f"mesh-group rank {r}: the sharded result differs from the "
+              f"local mesh's")
+        check(np.array_equal(got["ring_labels"], ring.labels.cpu().numpy())
+              and np.array_equal(got["ring_core"],
+                                 ring.core_mask.cpu().numpy())
+              and got["ring_meta"].tolist() == [ring.n_clusters,
+                                                ring.n_sweeps],
+              f"mesh-group rank {r}: the ring differs from the local mesh's")
+        check(got["counts"][0] > 0 and got["counts"][1] == 0,
+              f"mesh-group rank {r}: {got['counts'][0]} walk launches, "
+              f"{got['counts'][1]} plain walks")
+        total += got["counts"]
+    say("mesh-group", ranks=MESH_GROUP_RANKS, backend="gloo", dataset=dset,
+        n=n, n_sweeps=want.n_sweeps, n_clusters=want.n_clusters,
+        walk_launches=int(total[0]), count_launches=int(total[2]),
+        minlabel_launches=int(total[3]), group_s=f"{group_s:.1f}",
+        vs=f"local mesh P={MESH_GROUP_RANKS}", ok=True)
+    return {"walk": int(total[0]), "pairwise_count": int(total[2]),
+            "pairwise_minlabel": int(total[3])}
+
+
 def timed(phase: str, fn, *args):
     """``fn(*args)``, with a line giving its wall time."""
     t0 = time.perf_counter()
@@ -2651,7 +3059,13 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="add a per-kernel device time breakdown")
+    # one rank of [mesh-group], started by the phase itself
+    ap.add_argument("--mesh-group-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-group-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mesh_group_rank is not None:
+        mesh_group_worker(args.mesh_group_rank, args.mesh_group_dir)
+        return
     t_all = time.perf_counter()
 
     phase_environment()
@@ -2703,6 +3117,21 @@ def main() -> None:
     check(seen_tu["walk"] > 0 and seen_tu["plain_walk_runs"] == 0,
           f"tune: {seen_tu['walk']} walk launches, "
           f"{seen_tu['plain_walk_runs']} plain walks")
+    sh_err = timed("sharded-check", phase_sharded_check)
+    reset_counts()
+    sh = timed("sharded", run_sharded)
+    seen_sh = counts()
+    say("counts", path="sharded", **seen_sh)
+    timed("sharded-verify", check_sharded, sh, seen_sh)
+    del sh
+    reset_counts()
+    rg = timed("ring", run_ring)
+    seen_rg = counts()
+    say("counts", path="ring", **seen_rg)
+    timed("ring-verify", check_ring, rg, seen_rg)
+    del rg
+    with tempfile.TemporaryDirectory() as workdir:
+        seen_mg = timed("mesh-group", phase_mesh_group, workdir)
     with tempfile.TemporaryDirectory() as workdir:
         timed("cluster-cli", phase_cluster_cli, workdir)
     timed("degenerate", phase_degenerate)
@@ -2711,22 +3140,30 @@ def main() -> None:
     say("total-time", seconds=f"{time.perf_counter() - t_all:.1f}")
     walk_t["max_abs_err"] = max(walk_err, main_err, tune_err)
     knn_t["max_abs_err"] = max(knn_err, knn_t["max_abs_err"])
+    for name in ("pairwise_count", "pairwise_minlabel"):
+        tile_t[name]["max_abs_err"] = max(tile_t[name]["max_abs_err"],
+                                          sh_err)
 
     csrc = "src/repro_torch/csrc"
     kernels = [
         dict(name="walk", route="cuda", source=f"{csrc}/walk.cu",
              replaces="src/repro/kernels/traverse.py:98",
              launches=(seen["walk"] + seen_st["walk"] + seen_sv["walk"]
-                       + seen_tu["walk"]),
+                       + seen_tu["walk"] + seen_sh["walk"]
+                       + seen_mg["walk"]),
              **walk_t),
         dict(name="pairwise_count", route="cuda",
              source=f"{csrc}/pairwise.cu",
              replaces="src/repro/kernels/pairwise.py:67",
-             launches=seen["pairwise_count"], **tile_t["pairwise_count"]),
+             launches=(seen["pairwise_count"] + seen_rg["pairwise_count"]
+                       + seen_mg["pairwise_count"]),
+             **tile_t["pairwise_count"]),
         dict(name="pairwise_minlabel", route="cuda",
              source=f"{csrc}/pairwise.cu",
              replaces="src/repro/kernels/pairwise.py:81",
-             launches=seen["pairwise_minlabel"],
+             launches=(seen["pairwise_minlabel"]
+                       + seen_rg["pairwise_minlabel"]
+                       + seen_mg["pairwise_minlabel"]),
              **tile_t["pairwise_minlabel"]),
         dict(name="knn", route="cuda", source=f"{csrc}/knn.cu",
              replaces="none: no Pallas kernel (the reference's k-NN is an "

@@ -24,6 +24,10 @@ serving the backends:
                            cached plain fdbscan index; :func:`stream_handle`
                            and :func:`tenant_handles` return live handles
                            over the same index.
+  * ``sharded``          — shard-local trees over a mesh's data axis with
+                           an eps-halo exchange of traveling queries
+                           (``repro_torch.distributed``); ``mesh=`` with
+                           more than one shard routes auto dispatch here.
 
 Every walk runs where the points are: on a CUDA device each walk of every
 tree backend, and every level walk of a streaming handle, is the walk
@@ -65,11 +69,6 @@ _plan_cache: "OrderedDict[Any, Any]" = OrderedDict()
 
 ALGORITHMS = ("auto", "fdbscan", "fdbscan-densebox", "tiled", "sharded",
               "stream", "pallas-tree")
-# Backends of the reference that this package does not have yet, with the
-# ROADMAP item that brings each.
-_NOT_YET = {
-    "sharded": "ROADMAP Queue 1, distributed (multi-device tree path)",
-}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -152,9 +151,10 @@ class Plan(NamedTuple):
     """A resolved backend choice plus the (reusable) index that drove it.
 
     backend: one of "fdbscan", "fdbscan-densebox", "pallas-tree", "tiled",
-        "stream".
+        "stream", "sharded".
     segs / tree: the segment index and its LBVH (None for the index-free
-        tiled backend, and tree is None below two segments); a stream plan
+        tiled backend and for the sharded backend, whose shards build
+        their own, and tree is None below two segments); a stream plan
         carries the plain fdbscan index its handles bootstrap from.
     stats: occupancy/size stats behind the choice; ``stats["reason"]``
         states why this backend won; pallas-tree plans also record
@@ -206,6 +206,18 @@ def _cache_put(key, val):
     return val
 
 
+def _mesh_ndev(mesh, axis: str) -> int:
+    """Shards along ``axis`` (1 when the mesh lacks it — a mesh without a
+    data axis never routes auto dispatch to the sharded backend); with no
+    mesh, those of the default mesh (``distributed.ring_dbscan.
+    default_mesh``: the ``torch.distributed`` world, else one)."""
+    from repro_torch.distributed import sharding
+    if mesh is None:
+        from repro_torch.distributed.ring_dbscan import default_mesh
+        mesh = default_mesh(axis)
+    return sharding._axis_size(mesh, axis)
+
+
 def _tree_of(segs: grid.Segments):
     if segs.n_segments < 2 or segs.n_points < 2:
         return None
@@ -241,13 +253,15 @@ def _fdbscan_plan(points, pkey: str, stats: dict) -> Plan:
 
 
 def plan(points, eps: float, min_pts: int, algorithm: str = "auto",
-         mesh=None, *, device=None) -> Plan:
+         mesh=None, axis: str = "data", *, device=None) -> Plan:
     """Choose a backend and build (or fetch) its index.
 
     The densebox grid build is reused as the density probe: its dense-point
     fraction decides densebox-vs-plain, and on a densebox decision the very
     same segments become the index. On a CUDA device an auto tree decision
-    becomes the ``pallas-tree`` (walk kernel) backend.
+    becomes the ``pallas-tree`` (walk kernel) backend. An active ``mesh``
+    routes to the sharded tree path, whose shards build their own indexes
+    at run time: nothing to cache here beyond the decision.
 
     Instrumented: with a collector installed, planning is bracketed by a
     ``plan`` span (index builds get a nested ``build`` span) and reports
@@ -258,43 +272,59 @@ def plan(points, eps: float, min_pts: int, algorithm: str = "auto",
         eps: DBSCAN radius (non-negative).
         min_pts: DBSCAN density threshold (the query point counts).
         algorithm: one of :data:`ALGORITHMS`; ``"auto"`` probes and picks.
-        mesh: multi-device routing — not in this package yet.
+        mesh: optional ``repro_torch.distributed.sharding.LocalMesh`` or
+            ``GroupMesh`` (``repro_torch.launch.mesh`` makes them); with an
+            ``axis`` of more than one shard it routes auto dispatch to the
+            sharded backend.
+        axis: the mesh axis points are sharded over (default ``"data"``).
         device: where to build and run; default the current CUDA device
             (``RuntimeError`` if there is none).
 
     Raises:
         ValueError: unknown ``algorithm``; negative ``eps``; malformed
-            ``points`` (see :func:`check_points`); a stream request with
-            d not in (2, 3).
-        NotImplementedError: ``sharded`` or ``mesh=``, which a later
-            ROADMAP item brings.
+            ``points`` (see :func:`check_points`); ``mesh=`` combined with
+            a single-device algorithm; a sharded request whose mesh lacks
+            ``axis``; a stream request with d not in (2, 3).
     """
     with obs_trace.span("plan", algorithm=algorithm) as sp:
-        p = _plan_impl(points, eps, min_pts, algorithm, mesh, device)
+        p = _plan_impl(points, eps, min_pts, algorithm, mesh, axis, device)
         sp.watch(p.segs, p.tree)
     obs_metrics.inc("dispatch_plans_total", backend=p.backend)
     return p
 
 
 def _plan_impl(points, eps: float, min_pts: int, algorithm: str, mesh,
-               device) -> Plan:
+               axis: str, device) -> Plan:
     """The planning decision body; :func:`plan` wraps it in the span and
     counter instrumentation."""
     if algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            f"mesh= is not supported yet: {_NOT_YET['sharded']}")
-    if algorithm in _NOT_YET:
-        raise NotImplementedError(
-            f"algorithm={algorithm!r} is not supported yet: "
-            f"{_NOT_YET[algorithm]}")
     if eps < 0:
         raise ValueError(f"eps must be non-negative; got {eps}"
                          " (a negative eps would be squared away silently)")
-    check_points(points)
-    points = as_points(points, resolve_device(device))
-    n, d = points.shape
+    if mesh is not None and algorithm not in ("auto", "sharded"):
+        raise ValueError(
+            f"mesh= is incompatible with algorithm={algorithm!r}: the "
+            f"{algorithm} backend is single-device and would silently "
+            "ignore it (use algorithm='sharded' or 'auto' to shard)")
+    n, d = check_points(points).shape
+    dev = resolve_device(device)
+    if mesh is not None and axis not in mesh.axis_names:
+        if algorithm == "sharded":
+            raise ValueError(f"mesh has no axis {axis!r}: {mesh.axis_names}")
+        mesh = None  # a mesh without the data axis cannot shard points
+    if (algorithm == "sharded"
+            or (algorithm == "auto" and mesh is not None
+                and _mesh_ndev(mesh, axis) > 1)):
+        # sharded plans carry no index and depend only on the mesh, so no
+        # point-content hash (an O(n) host transfer) and no cache needed
+        return Plan("sharded", None, None,
+                    {"n": n, "d": d, "ndev": _mesh_ndev(mesh, axis),
+                     "mesh": mesh, "axis": axis,
+                     "reason": ("explicit" if algorithm == "sharded"
+                                else "mesh active: shard-local trees")},
+                    dev)
+    points = as_points(points, dev)
     pkey = _points_key(points)
     key = (pkey, float(eps), int(min_pts), algorithm)
     hit = _cache_get(key)
@@ -354,7 +384,7 @@ def _plan_impl(points, eps: float, min_pts: int, algorithm: str, mesh,
 
 def dbscan(points, eps: float, min_pts: int, *, algorithm: str = "auto",
            star: bool = False, frontier: bool = True, mesh=None,
-           query_plan: Plan | None = None,
+           axis: str = "data", query_plan: Plan | None = None,
            device=None) -> fdbscan.DBSCANResult:
     """DBSCAN with automatic backend selection (the unified entry point).
 
@@ -362,6 +392,8 @@ def dbscan(points, eps: float, min_pts: int, *, algorithm: str = "auto",
     previous :func:`plan` call *for the same point set* to amortize the
     index build across runs (the plan's index, not ``points``, is what a
     tree backend clusters; the run happens on the plan's device).
+    ``mesh`` (a mesh with a data axis) routes auto dispatch to the sharded
+    tree path.
 
     Args:
         points: (n, d) points (array-like or tensor).
@@ -370,10 +402,11 @@ def dbscan(points, eps: float, min_pts: int, *, algorithm: str = "auto",
             point with ``min_pts - 1`` neighbors is core).
         algorithm: backend request, see :func:`plan`.
         star: DBSCAN* variant — no border points, non-core points are
-            noise.
+            noise (not supported by the sharded backend).
         frontier: restrict label sweeps to the changed-point frontier
-            (exact, default True); only for the tree backends.
-        mesh: see :func:`plan`.
+            (exact, default True); only for the single-device tree
+            backends.
+        mesh / axis: multi-shard routing, see :func:`plan`.
         query_plan: a previous :func:`plan` result for the same points.
         device: see :func:`plan`.
 
@@ -385,23 +418,34 @@ def dbscan(points, eps: float, min_pts: int, *, algorithm: str = "auto",
     Raises:
         RuntimeError: no CUDA device and no ``device`` given.
         ValueError: invalid parameters (see :func:`plan`), or ``frontier``
-            combined with the tiled or stream backend, which would ignore
-            it.
-        NotImplementedError: see :func:`plan`.
+            combined with the tiled, stream or sharded backend, which
+            would ignore it.
+        NotImplementedError: ``star=True`` on the sharded backend.
     """
     n = check_points(points).shape[0]
     if query_plan is not None:
         p = query_plan
     else:
-        p = plan(points, eps, min_pts, algorithm, mesh, device=device)
-    if p.backend in ("tiled", "stream") and frontier is not True:
+        p = plan(points, eps, min_pts, algorithm, mesh, axis, device=device)
+    if p.backend in ("tiled", "stream", "sharded") and frontier is not True:
         raise ValueError(
             f"frontier={frontier!r} is incompatible with the {p.backend} "
-            "backend: frontier restriction only applies to the "
-            "tree-sweep backends and would silently be ignored (drop "
-            "the kwarg, or pick algorithm='fdbscan'/'fdbscan-densebox')")
+            "backend: frontier restriction only applies to the single-"
+            "device tree-sweep backends and would silently be ignored "
+            "(drop the kwarg, or pick "
+            "algorithm='fdbscan'/'fdbscan-densebox')")
     with obs_trace.span("dbscan", backend=p.backend, n=n) as sp:
-        if p.backend == "stream":
+        if p.backend == "sharded":
+            from repro_torch.distributed.ring_dbscan import \
+                tree_dbscan_sharded
+            if star:
+                raise NotImplementedError(
+                    "sharded backend has no DBSCAN* mode")
+            res = tree_dbscan_sharded(
+                points, eps, min_pts, mesh=p.stats.get("mesh", mesh),
+                axis=p.stats.get("axis", axis),
+                device=p.device)._replace(backend="sharded")
+        elif p.backend == "stream":
             # one-shot execution of a stream plan: bootstrap a handle over
             # the plan's (cached, eps-independent) index and materialize
             # labels

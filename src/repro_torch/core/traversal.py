@@ -514,7 +514,7 @@ def make_step(tree: Tree, segs: Segments, callback, *, q, ctx: QueryCtx,
 def traverse(tree: Tree, segs: Segments, predicates, callback, carry=None,
              node_mask=None, node_mask_wide=None, wide_lanes=None,
              use_range_mask: bool = False,
-             unroll: int = DEFAULT_UNROLL) -> Trace:
+             unroll: int = DEFAULT_UNROLL, root=None) -> Trace:
     """Run one fused traversal per predicate lane, driving ``callback``.
 
     The plain engine: it runs on whatever device the index lives on.
@@ -539,6 +539,11 @@ def traverse(tree: Tree, segs: Segments, predicates, callback, carry=None,
         ``ctx.wide`` so a dual-mask visitor switches its gather mask (the
         split first main sweep).
     unroll: work units per loop trip (``iters`` counts trips).
+    root: optional (lanes,) int32 node each lane starts from (default the
+        root, node 0). A forest of trees packed into one index (the
+        sharded path's shards, ``repro_torch.distributed``) gives each
+        lane its own tree's root; a tree's rope out of its root is -1, so
+        the lane's walk ends where that tree does.
     """
     traverse.runs += 1
     (query_ids, q_arr, self_arr, dense_arr, rank_arr, external, r2,
@@ -556,7 +561,8 @@ def traverse(tree: Tree, segs: Segments, predicates, callback, carry=None,
                               node_mask_wide=node_mask_wide,
                               use_range_mask=use_range_mask)
     m = segs.n_segments
-    root = 0 if m > 1 else m - 1          # m == 1: the single leaf
+    if root is None:
+        root = 0 if m > 1 else m - 1      # m == 1: the single leaf
     node = torch.where(query_ids >= 0, root, -1).to(torch.int32)
     ptr = torch.full_like(node, -1)
     evals = torch.zeros_like(node)

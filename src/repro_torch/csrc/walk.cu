@@ -87,6 +87,7 @@ struct WalkArgs {
   // lane inputs
   const float* __restrict__ q;
   const int* __restrict__ qid;
+  const int* __restrict__ root;  // per-lane start node; null: the root, 0
   const int* __restrict__ self_id;
   const uint8_t* __restrict__ dense;
   const int* __restrict__ rank;
@@ -167,7 +168,9 @@ __global__ void __launch_bounds__(MAXB) walk_kernel(const WalkArgs a) {
                                                                 : a.mask;
           acc = static_cast<const V*>(a.acc0)[l];
           hits = a.hits0[l];
-          node = a.qid[l] >= 0 ? 0 : -1;  // root = 0; -1: inert lane
+          // the root (0, or the lane's own tree's root in a forest of
+          // trees packed into one index); -1: inert lane
+          node = a.qid[l] >= 0 ? (a.root != nullptr ? a.root[l] : 0) : -1;
           ptr = -1;
           evals = 0;
           units = 0;
@@ -405,11 +408,13 @@ int launch_any(int kind, int vals_f32, int d, int block, const WalkArgs& a,
 // cudaErrorInvalidValue); `next` points to one int32 of scratch, zeroed
 // here on the stream before the launch. Writes the grid size used
 // (resident blocks, capped by the lanes) to *grid_out when it is not null.
-// Returns the first CUDA error (0 on success).
+// `root` (may be null: every lane starts at node 0) gives each lane its
+// start node. Returns the first CUDA error (0 on success).
 extern "C" int walk_launch(
     int kind, int vals_f32, int d, int block, int unroll, int use_range_mask,
     int has_node_mask, int dual_nodes, int dual_gather, int n_lanes, int m,
-    float r2, int cap, const float* q, const int* qid, const int* self_id,
+    float r2, int cap, const float* q, const int* qid, const int* root,
+    const int* self_id,
     const uint8_t* dense, const int* rank, const uint8_t* wide,
     const void* acc0, const int* hits0, const void* nodes,
     const int* leaf_end, const void* pts, const void* vals,
@@ -429,6 +434,7 @@ extern "C" int walk_launch(
   a.cap = cap;
   a.q = q;
   a.qid = qid;
+  a.root = root;
   a.self_id = self_id;
   a.dense = dense;
   a.rank = rank;

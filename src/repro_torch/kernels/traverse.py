@@ -52,7 +52,7 @@ FUSIBLE_VISITORS = tuple(KINDS)
 KIND_NAMES = ("count", "minlabel", "countminlabel")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_I] * 11 + [_F, _I] + [_P] * 24
+_ARGTYPES = [_I] * 11 + [_F, _I] + [_P] * 25
 
 
 def fusible(predicates, callback) -> bool:
@@ -102,11 +102,12 @@ def walk(kind: int, *, q, qid, self_id, dense, rank, wide, acc0, hits0,
          index: WalkIndex, r2: float, cap: int = INT_MAX,
          unroll: int = PALLAS_UNROLL, block: int = LANE_TILE, range_r=None,
          node_mask=None, node_mask_wide=None, vals=None, mask=None,
-         mask_wide=None):
+         mask_wide=None, root=None):
     """Launch the walk kernel on the current stream (CUDA tensors only).
 
     Lane inputs: q (L, d) f32; qid, self_id, rank (L,) i32; dense, wide (L,)
-    bool; acc0 (L,) i32 (f32 with float ``vals``); hits0 (L,) i32.
+    bool; acc0 (L,) i32 (f32 with float ``vals``); hits0 (L,) i32; root
+    (L,) i32, each lane's start node (optional; default node 0).
     ``block``: threads a block, a multiple of 32 from 32 to 512 (no output
     depends on it). Index:
     ``index`` from :func:`walkpack.pack_index` over n points, m >= 2
@@ -148,6 +149,7 @@ def walk(kind: int, *, q, qid, self_id, dense, rank, wide, acc0, hits0,
     p = dict(
         q=_check(q, "q", f32, (L, d), dev),
         qid=_check(qid, "qid", i32, (L,), dev),
+        root=None if root is None else _check(root, "root", i32, (L,), dev),
         self_id=_check(self_id, "self_id", i32, (L,), dev),
         dense=_check(dense, "dense", b8, (L,), dev, align=1),
         rank=_check(rank, "rank", i32, (L,), dev),
@@ -186,7 +188,8 @@ def walk(kind: int, *, q, qid, self_id, dense, rank, wide, acc0, hits0,
         int(range_r is not None),
         int(node_mask is not None), int(node_mask_wide is not None),
         int(has_mask_wide), L, m, r2, int(cap),
-        p["q"], p["qid"], p["self_id"], p["dense"], p["rank"], p["wide"],
+        p["q"], p["qid"], p["root"], p["self_id"], p["dense"], p["rank"],
+        p["wide"],
         p["acc0"], p["hits0"], nodes_p, leaf_end_p, pts_p, p["vals"],
         p["mask"], p["mask_wide"], p["range_r"], p["node_mask"],
         p["node_mask_wide"], nxt.data_ptr(),
@@ -225,7 +228,8 @@ def traverse(tree: Tree, segs: Segments, predicates, callback, carry=None,
              use_range_mask: bool = False, unroll: int | None = None,
              lane_tile: int = LANE_TILE, reorder: str = "none",
              depth_rank=None,
-             walk_index: WalkIndex | None = None) -> traversal.Trace:
+             walk_index: WalkIndex | None = None,
+             root=None) -> traversal.Trace:
     """The walk, on the device of the index.
 
     CPU tensors run the plain engine (``unroll`` default
@@ -246,6 +250,9 @@ def traverse(tree: Tree, segs: Segments, predicates, callback, carry=None,
     walk_index: the index's packed layout (:func:`walkpack.pack_index`,
         built once per index), which the kernel reads and the plain engine
         does not.
+    root: optional (lanes,) int32 start node a lane, for a forest of
+        trees packed into one index (see
+        :func:`repro_torch.core.traversal.traverse`).
 
     Raises:
         NotImplementedError: on CUDA, for a predicate or visitor the kernel
@@ -263,7 +270,7 @@ def traverse(tree: Tree, segs: Segments, predicates, callback, carry=None,
             tree, segs, predicates, callback, carry=carry,
             node_mask=node_mask, node_mask_wide=node_mask_wide,
             wide_lanes=wide_lanes, use_range_mask=use_range_mask,
-            unroll=plain_unroll)
+            unroll=plain_unroll, root=root)
     if not cpu:
         if not fusible(predicates, callback):
             raise NotImplementedError(
@@ -299,7 +306,7 @@ def traverse(tree: Tree, segs: Segments, predicates, callback, carry=None,
                 tree, segs, predicates, callback, carry=carry,
                 node_mask=node_mask, node_mask_wide=node_mask_wide,
                 wide_lanes=wide_lanes, use_range_mask=use_range_mask,
-                unroll=plain_unroll)
+                unroll=plain_unroll, root=root)
         # the plain engine walks the permuted batch: ids and external
         # points, the carry and the wide lanes in the new order
         pred = traversal.Intersects(predicates.geometry, ids=query_ids[perm],
@@ -310,7 +317,8 @@ def traverse(tree: Tree, segs: Segments, predicates, callback, carry=None,
                    else traversal.tree_map(lambda x: x[perm], carry)),
             node_mask=node_mask, node_mask_wide=node_mask_wide,
             wide_lanes=None if wide_lanes is None else wide_lanes[perm],
-            use_range_mask=use_range_mask, unroll=plain_unroll)
+            use_range_mask=use_range_mask, unroll=plain_unroll,
+            root=None if root is None else root[perm])
         return _permute_trace(tr, inv)
     if carry is None:
         carry = callback.init_carry(query_ids, external, segs)
@@ -318,10 +326,14 @@ def traverse(tree: Tree, segs: Segments, predicates, callback, carry=None,
         wide_lanes = torch.zeros_like(query_ids, dtype=torch.bool)
     lanes = (q_arr, query_ids, self_arr, dense_arr, rank_arr, wide_lanes,
              carry.acc, carry.hits)
+    if root is not None:
+        lanes += (root,)
     if perm is not None:
         lanes = tuple(x[perm] for x in lanes)
     q_arr, query_ids, self_arr, dense_arr, rank_arr, wide_lanes, acc0, \
-        hits0 = (x.contiguous() for x in lanes)
+        hits0 = (x.contiguous() for x in lanes[:8])
+    if root is not None:
+        root = lanes[8].contiguous()
     kind = KINDS[type(callback)]
     acc, hits, evals, iters = walk(
         kind, q=q_arr, qid=query_ids, self_id=self_arr, dense=dense_arr,
@@ -335,7 +347,8 @@ def traverse(tree: Tree, segs: Segments, predicates, callback, carry=None,
         node_mask_wide=node_mask_wide if node_mask is not None else None,
         vals=getattr(callback, "vals", None),
         mask=getattr(callback, "mask", None),
-        mask_wide=(callback.mask_wide if kind == 1 else None))
+        mask_wide=(callback.mask_wide if kind == 1 else None),
+        root=root)
     tr = traversal.Trace(carry=traversal.AccHits(acc=acc, hits=hits),
                          evals=evals, iters=iters)
     return tr if inv is None else _permute_trace(tr, inv)

@@ -5,9 +5,12 @@
       -n 20000 --eps 0.03 --minpts 5 --algorithm fdbscan-densebox
 
 Runs on the current CUDA device unless ``--device cpu`` is given (and
-refuses to run without one). ``--trace``/``--metrics-json`` record the
-run's phase spans (plan/build/traverse/sweep/border) and metrics snapshot
-through ``repro_torch.obs``. A ``pallas-tree`` plan (``auto`` on the card
+refuses to run without one). ``--algorithm ring`` runs the dense ring
+(``repro_torch.distributed.ring_dbscan``) on the default mesh: the
+``torch.distributed`` world where one is initialised, else one shard.
+``--trace``/``--metrics-json`` record the run's phase spans
+(plan/build/traverse/sweep/border) and metrics snapshot through
+``repro_torch.obs``. A ``pallas-tree`` plan (``auto`` on the card
 names one) prints its tuner decision (``REPRO_TUNE``: off, heuristic,
 search).
 """
@@ -22,8 +25,6 @@ import torch
 
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
-
-_RING = "ROADMAP Queue 1 item 2 (distributed/)"
 
 
 def main(argv=None) -> dict:
@@ -94,8 +95,8 @@ def _run(args, reg, tracer) -> dict:
         from repro_torch.core import gdbscan
         res = gdbscan(pts, args.eps, args.minpts, device=args.device)
     elif args.algorithm == "ring":
-        raise NotImplementedError(
-            f"--algorithm ring is not supported yet: {_RING}")
+        from repro_torch.distributed.ring_dbscan import ring_dbscan
+        res = ring_dbscan(pts, args.eps, args.minpts, device=args.device)
     else:
         p = dispatch.plan(pts, args.eps, args.minpts, args.algorithm,
                           device=args.device)

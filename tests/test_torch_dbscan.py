@@ -193,18 +193,27 @@ def test_negative_eps_and_bad_points_raise():
 
 @pytest.mark.parametrize("algorithm", ["sharded", "stream"])
 def test_later_backends_name_their_roadmap_item(algorithm):
-    """``sharded`` and ``mesh=`` name the ROADMAP item that brings them;
-    ``stream``, which the port has now, runs (and refuses ``mesh=``)."""
+    """The backends later slices brought run: ``sharded`` (with or without
+    ``mesh=``, and ``auto`` under a mesh of several shards) equals
+    ``fdbscan``'s core mask and partition; ``stream`` runs and, being
+    single-device, refuses ``mesh=`` with ``ValueError``."""
+    from repro_torch.core.validate import same_partition
+    from repro_torch.distributed.sharding import LocalMesh
     pts = separated_points(50, 2, eps=0.1, seed=0)
+    mesh = LocalMesh(3)
+    ref = _run(pts, 0.1, 3, algorithm="fdbscan")
     if algorithm == "stream":
         assert _run(pts, 0.1, 3, algorithm=algorithm).backend == "stream"
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _run(pts, 0.1, 3, algorithm=algorithm)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _run(pts, 0.1, 3, algorithm=algorithm, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _run(pts, 0.1, 3, mesh=object())
+        with pytest.raises(ValueError, match="mesh"):
+            _run(pts, 0.1, 3, algorithm=algorithm, mesh=mesh)
+        return
+    for kw in ({"algorithm": "sharded"}, {"algorithm": "sharded",
+                                          "mesh": mesh}, {"mesh": mesh}):
+        res = _run(pts, 0.1, 3, **kw)
+        assert res.backend == "sharded"
+        np.testing.assert_array_equal(res.core_mask.numpy(),
+                                      ref.core_mask.numpy())
+        assert same_partition(res.labels.numpy(), ref.labels.numpy())
 
 
 def test_plan_cache_hit_and_shared_index():

@@ -1,11 +1,14 @@
 """The port stands alone: no module of ``src/repro_torch`` (the
-``stream``, ``serve`` and ``launch`` packages included) and not
-``chip_smoke.py`` imports JAX or the reference package, importing and
-running the port (clustering, neighbor queries, a streaming handle with a
-WAL, a checkpoint and a restore, a two-tenant server, the serving CLI,
-under the port's own collectors, a tuned plan and the clustering CLI)
-loads neither, and without a CUDA device
-the entry points refuse to run unless the caller asks for the CPU."""
+``stream``, ``serve``, ``distributed`` and ``launch`` packages included),
+not ``chip_smoke.py`` and not ``examples/torch_quickstart.py`` imports JAX
+or the reference package, importing and running the port (clustering,
+neighbor queries, a streaming handle with a WAL, a checkpoint and a
+restore, a two-tenant server, the serving CLI, under the port's own
+collectors, a tuned plan, the clustering CLI with ``--algorithm ring``,
+the sharded path and the dense ring on a local mesh and on a one-rank
+gloo group mesh, and the quickstart) loads neither, and without a CUDA
+device the entry points refuse to run unless the caller asks for the
+CPU."""
 import ast
 import os
 import subprocess
@@ -32,6 +35,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "examples", "torch_quickstart.py")
 
 
 def _imported_roots(path):
@@ -55,7 +59,7 @@ def test_no_module_imports_jax_or_the_reference():
 
 
 def test_running_the_port_loads_neither_jax_nor_the_reference():
-    code = textwrap.dedent("""
+    code = f"ROOT = {ROOT!r}\n" + textwrap.dedent("""
         import os
         import sys
         import tempfile
@@ -129,12 +133,38 @@ def test_running_the_port_loads_neither_jax_nor_the_reference():
                             "--minpts", "5", "--algorithm", "gdbscan",
                             "--device", "cpu"])
         assert out["n_clusters"] > 0
+        out = cluster.main(["--data", "blobs", "-n", "300", "--eps", "0.05",
+                            "--minpts", "5", "--algorithm", "ring",
+                            "--device", "cpu"])
+        assert out["backend"] == "ring"
+        import runpy
+        import torch.distributed as dist
+        from repro_torch.distributed.ring_dbscan import ring_dbscan
+        from repro_torch.launch import mesh as lmesh
+        local = lmesh.make_local_mesh(4)
+        res = repro_torch.dbscan(pts, 0.05, 5, mesh=local, device="cpu")
+        ring = ring_dbscan(pts, 0.05, 5, mesh=local, device="cpu")
+        assert res.backend == "sharded" and ring.n_clusters == res.n_clusters
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group("gloo", init_method=f"file://{tmp}/g",
+                                    world_size=1, rank=0)
+            group = lmesh.make_host_mesh()
+            res = repro_torch.dbscan(pts, 0.05, 5, algorithm="sharded",
+                                     mesh=group, device="cpu")
+            ring = ring_dbscan(pts, 0.05, 5, device="cpu")
+            dist.destroy_process_group()
+        assert type(group).__name__ == "GroupMesh"
+        assert res.n_clusters == ring.n_clusters > 0
+        sys.argv = ["torch_quickstart.py", "--device", "cpu", "-n", "600"]
+        runpy.run_path(os.path.join(ROOT, "examples", "torch_quickstart.py"),
+                       run_name="__main__")
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not bad, bad
         print("isolated")
     """)
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr

@@ -6,8 +6,9 @@ Every algorithm the CLI takes on a tree-free or tree path writes ``--out``
 labels byte-equal to the reference CLI's on the same arguments; its
 ``--metrics-json`` and ``--trace`` files pass both packages' validators; a
 ``pallas-tree`` run prints and returns the plan's tuner decision; ``ring``
-raises, naming the ROADMAP item that brings it; and without a CUDA device
-the CLI refuses to run unless given ``--device cpu``. ``gdbscan`` and
+runs the dense ring on the default mesh and writes the labels of
+``ring_dbscan``; and without a CUDA device the CLI refuses to run unless
+given ``--device cpu``. ``gdbscan`` and
 ``dbscan_bruteforce_np`` equal the reference's on boundary-separated
 points.
 
@@ -83,9 +84,16 @@ def test_metrics_and_trace_pass_both_validators(tmp_path, monkeypatch,
         "first_pass", "sweep", "border"}
 
 
-def test_ring_raises_and_no_cuda_refuses(monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        cli.main(ARGS + ["--algorithm", "ring", "--device", "cpu"])
+def test_ring_raises_and_no_cuda_refuses(monkeypatch, tmp_path):
+    from repro_torch.data import pointclouds
+    from repro_torch.distributed.ring_dbscan import ring_dbscan
+    out = tmp_path / "ring.npy"
+    got = cli.main(ARGS + ["--algorithm", "ring", "--device", "cpu",
+                           "--out", str(out)])
+    want = ring_dbscan(pointclouds.load("blobs", 600), 0.05, 8,
+                       device="cpu")
+    assert got["backend"] == "ring" and got["n_sweeps"] == want.n_sweeps
+    np.testing.assert_array_equal(np.load(out), want.labels.numpy())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit) as ei:
         cli.main(ARGS)
