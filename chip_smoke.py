@@ -26,9 +26,10 @@ among its algorithms), and the ``gdbscan`` baseline — checks the results
 against a second backend and numpy oracles, shows that every walk and tile
 of each path ran as a kernel, holds the streaming index and the sharded
 path on the card against the same calls on the host at small sizes
-(every walk of the sharded runs against the host's), and validates the
+(every walk of the sharded runs against the host's), validates the
 metrics and trace of an instrumented clustering run
-(``repro_torch.obs``).
+(``repro_torch.obs``), and holds every host sync of the main path's
+clustering calls against the program's own count of them.
 
     python3 chip_smoke.py --profile    # adds a per-kernel time breakdown
 
@@ -1171,7 +1172,10 @@ def phase_profile(runs) -> None:
             torch.cuda.synchronize()
         kern = {}
         for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
+            # device work only: the program's spans annotate the capture,
+            # and their device-side ranges are no kernels
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)):
                 kern.setdefault(e.name, [0.0, 0])
                 kern[e.name][0] += e.time_range.elapsed_us() / 1e3
                 kern[e.name][1] += 1
@@ -1780,6 +1784,46 @@ def phase_obs(runs) -> None:
         warm_ms_on=",".join(f"{t:.1f}" for t in times["on"]),
         observer_ms=f"{np.median(times['on']) - np.median(times['off']):.1f}",
         ok=True)
+
+
+def phase_sync_audit(runs) -> None:
+    """Every host sync of the main path's clustering calls is counted
+    where the program makes it (``repro_torch.obs.syncs``), and a metrics
+    registry adds none: a resident call (its plan cached) and a fresh call
+    (hash, index build and clustering) of both scenarios, on points held
+    on the card, under ``torch.cuda.set_sync_debug_mode("warn")`` with no
+    collector and with a registry (``tools/sync_audit.py``). Fails where a
+    function's synchronizing calls and counts differ."""
+    from repro_torch.core import dispatch
+    from tools import sync_audit
+    for dset, n, eps, mp, pts, plan, _, _ in runs:
+        if plan is None:
+            continue
+        x = torch.as_tensor(pts, device=DEV)
+
+        def resident():
+            return repro_torch.dbscan(x, eps, mp)
+
+        def fresh():
+            dispatch.clear_cache()
+            return repro_torch.dbscan(x, eps, mp)
+
+        resident()                           # its plan, cached
+        for what, call in (("resident", resident), ("fresh", fresh)):
+            row = sync_audit.audit(call)
+            sync_audit.report(f"{dset} {what}", row)
+            say("sync-audit", dataset=dset, call=what,
+                n_sweeps=row["n_sweeps"],
+                syncs=row["syncs_without_registry"],
+                syncs_with_registry=row["syncs_with_registry"],
+                host_syncs_total=int(row["host_syncs_total"]),
+                differs=",".join(row["differs"]) or "none")
+            check(row["ok"], f"sync-audit {dset} {what}: synchronizing "
+                             f"calls {row['syncs_without_registry']} "
+                             f"without a registry, "
+                             f"{row['syncs_with_registry']} with; counts "
+                             f"differ in {row['differs']}")
+        dispatch.clear_cache()
 
 
 # --------------------------------------------------------------------- #
@@ -3091,6 +3135,7 @@ def main() -> None:
     knn_t = timed("knn-time", phase_knn_timing, nb)
     del nb
     timed("obs", phase_obs, runs)
+    timed("sync-audit", phase_sync_audit, runs)
 
     reset_counts()
     with tempfile.TemporaryDirectory() as workdir:

@@ -41,7 +41,10 @@ index shared across all eps/min_pts entries of the same point set.
 
 Both are instrumented (:mod:`repro_torch.obs`) at the reference's points:
 ``plan``/``build``/``dbscan`` spans and the plan, cache, index-build and
-run counters. With no collector installed each point is a ``None`` check.
+run counters. The port adds the ``plan.hash`` span (the content hash,
+inside ``plan``), the ``build.grid``/``build.tree``/``build.pack`` spans
+inside each ``build``, and counts its host reads (``obs.syncs``). With no
+collector installed each point is a ``None`` check.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import syncs
 from repro_torch.obs import trace as obs_trace
 
 from . import fdbscan, grid, lbvh, tune
@@ -185,7 +189,7 @@ def cache_info() -> dict:
 
 
 def _points_key(points: torch.Tensor) -> str:
-    arr = np.ascontiguousarray(points.detach().cpu().numpy())
+    arr = np.ascontiguousarray(syncs.read(points.detach(), "dispatch.hash"))
     h = hashlib.sha1(arr.tobytes())
     h.update(repr((arr.shape, str(arr.dtype), str(points.device))).encode())
     return h.hexdigest()
@@ -221,7 +225,10 @@ def _mesh_ndev(mesh, axis: str) -> int:
 def _tree_of(segs: grid.Segments):
     if segs.n_segments < 2 or segs.n_points < 2:
         return None
-    return lbvh.build_tree(segs.codes, segs.prim_lo, segs.prim_hi)
+    with obs_trace.span("build.tree") as sp:
+        tree = lbvh.build_tree(segs.codes, segs.prim_lo, segs.prim_hi)
+        sp.watch(tree)
+    return tree
 
 
 def _walk_index_of(segs: grid.Segments, tree):
@@ -232,7 +239,10 @@ def _walk_index_of(segs: grid.Segments, tree):
             or segs.pts.shape[1] not in (2, 3)):
         return None
     from repro_torch.kernels.walkpack import pack_index
-    return pack_index(tree, segs)
+    with obs_trace.span("build.pack") as sp:
+        walk_index = pack_index(tree, segs)
+        sp.watch(walk_index)
+    return walk_index
 
 
 def _fdbscan_plan(points, pkey: str, stats: dict) -> Plan:
@@ -242,7 +252,9 @@ def _fdbscan_plan(points, pkey: str, stats: dict) -> Plan:
     cached = _cache_get(base_key)
     if cached is None:
         with obs_trace.span("build", index="fdbscan") as sp:
-            segs = grid.build_segments_fdbscan(points)
+            with obs_trace.span("build.grid") as sg:
+                segs = grid.build_segments_fdbscan(points)
+                sg.watch(segs)
             tree = _tree_of(segs)
             walk_index = _walk_index_of(segs, tree)
             sp.watch(segs, tree, walk_index)
@@ -264,8 +276,9 @@ def plan(points, eps: float, min_pts: int, algorithm: str = "auto",
     at run time: nothing to cache here beyond the decision.
 
     Instrumented: with a collector installed, planning is bracketed by a
-    ``plan`` span (index builds get a nested ``build`` span) and reports
-    plan and cache-hit counters per backend.
+    ``plan`` span (the content hash gets a nested ``plan.hash`` span, index
+    builds a nested ``build`` span) and reports plan and cache-hit counters
+    per backend.
 
     Args:
         points: (n, d) points (array-like or tensor; computed in float32).
@@ -325,7 +338,8 @@ def _plan_impl(points, eps: float, min_pts: int, algorithm: str, mesh,
                                 else "mesh active: shard-local trees")},
                     dev)
     points = as_points(points, dev)
-    pkey = _points_key(points)
+    with obs_trace.span("plan.hash"):
+        pkey = _points_key(points)
     key = (pkey, float(eps), int(min_pts), algorithm)
     hit = _cache_get(key)
     if hit is not None:
@@ -363,20 +377,29 @@ def _plan_impl(points, eps: float, min_pts: int, algorithm: str, mesh,
         return _cache_put(key, _maybe_kernel(
             _fdbscan_plan(points, pkey, stats), algorithm, eps, min_pts))
 
-    # eps-grid build: density probe and (potentially) the index itself
+    # eps-grid build: density probe and (potentially) the index itself,
+    # whose tree and packed layout are built inside the same span
     with obs_trace.span("build", index="densebox") as sp:
-        segs = grid.build_segments_densebox(points, eps, min_pts)
-        sp.watch(segs)
+        with obs_trace.span("build.grid") as sg:
+            segs = grid.build_segments_densebox(points, eps, min_pts)
+            sg.watch(segs)
+        dense_frac = syncs.read(segs.dense_pt.float().mean(),
+                                "dispatch.dense_fraction")
+        densebox = (algorithm == "fdbscan-densebox"
+                    or dense_frac >= DENSE_FRACTION_MIN)
+        tree = walk_index = None
+        if densebox:
+            tree = _tree_of(segs)
+            walk_index = _walk_index_of(segs, tree)
+        sp.watch(segs, tree, walk_index)
     obs_metrics.inc("dispatch_index_builds_total", index="densebox")
-    dense_frac = float(segs.dense_pt.float().mean())
     stats.update(dense_fraction=dense_frac, n_segments=segs.n_segments)
-    if algorithm == "fdbscan-densebox" or dense_frac >= DENSE_FRACTION_MIN:
+    if densebox:
         stats["reason"] = ("explicit" if algorithm == "fdbscan-densebox"
                            else f"dense_fraction >= {DENSE_FRACTION_MIN}")
-        tree = _tree_of(segs)
         return _cache_put(key, _maybe_kernel(
             Plan("fdbscan-densebox", segs, tree, stats, points.device,
-                 _walk_index_of(segs, tree)), algorithm, eps, min_pts))
+                 walk_index), algorithm, eps, min_pts))
     stats["reason"] = f"dense_fraction < {DENSE_FRACTION_MIN}: plain tree"
     return _cache_put(key, _maybe_kernel(
         _fdbscan_plan(points, pkey, stats), algorithm, eps, min_pts))

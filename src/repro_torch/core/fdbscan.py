@@ -31,7 +31,9 @@ Instrumented (:mod:`repro_torch.obs`) at the reference's points: the
 the walks' ``traversal_evals_total``/``traversal_iters_total`` counters,
 labelled by phase and engine: on the CPU the reference's labels
 (``"pallas"`` for a tuned phase's kernel engine, ``"reference"`` for the
-plain engine), on the card ``"cuda"`` (the walk kernel).
+plain engine), on the card ``"cuda"`` (the walk kernel). Every host read
+and blocking operation goes through :mod:`repro_torch.obs.syncs`
+(``host_syncs_total`` by site).
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import syncs
 from repro_torch.obs import trace as obs_trace
 
 from . import grid, lbvh, traversal, unionfind
@@ -130,14 +133,14 @@ def _walk_kw(phase: dict, walk_index) -> dict:
 
 
 def _record_trace(phase: str, engine: str, tr) -> None:
-    """Fold a walk's work counters into the installed metrics registry.
-    Reading them syncs the device, so this is gated on an installed
-    registry — with none, the walk's result is never touched."""
+    """Fold a walk's work counters into the installed metrics registry as
+    device sums, read when the registry is (no sync here); with no
+    registry, the walk's result is never touched."""
     if obs_metrics.active() is None:
         return
-    obs_metrics.inc("traversal_evals_total", float(tr.evals.sum()),
+    obs_metrics.inc("traversal_evals_total", tr.evals.sum(),
                     phase=phase, engine=engine)
-    obs_metrics.inc("traversal_iters_total", float(tr.iters.sum()),
+    obs_metrics.inc("traversal_iters_total", tr.iters.sum(),
                     phase=phase, engine=engine)
 
 
@@ -201,8 +204,7 @@ def _pad_size(k: int) -> int:
     """The reference's pad length for ``k`` lanes or points: quarter-power-
     of-two buckets, at least :data:`_PAD_MIN`. The port compiles nothing
     per shape and pads no lanes, but the streaming index pads its levels to
-    these sizes (so a level is the same index in both packages) and names
-    its walk signatures by them."""
+    these sizes (so a level is the same index in both packages)."""
     size = _PAD_MIN
     while size < k:
         size *= 2
@@ -217,7 +219,9 @@ def _compact_ids(mask: torch.Tensor) -> torch.Tensor:
 
     The reference pads these to bucketed lengths to bound its compiled
     shapes; eager PyTorch and the ctypes-launched kernel compile nothing
-    per shape, so no lane here is padding."""
+    per shape, so no lane here is padding. The count is data dependent:
+    the host waits for it."""
+    syncs.blocked("fdbscan.nonzero")
     return torch.nonzero(mask).flatten().to(torch.int32)
 
 
@@ -273,8 +277,14 @@ def _cell_keys(pts, eps: float) -> torch.Tensor:
 def _near_changed(keys: torch.Tensor, d: int, changed: torch.Tensor
                   ) -> torch.Tensor:
     """Points whose eps-cell is within the dilation radius of a changed
-    point's cell — a sound superset of 'has a changed point within eps'."""
+    point's cell — a sound superset of 'has a changed point within eps'.
+
+    Membership is a binary search of each key in the dilated keys, made
+    unique and sorted. The host waits on the boolean-mask index, both
+    ``unique`` calls and the copy of the offsets from host memory."""
     changed_keys = torch.unique(keys[changed])
+    syncs.blocked("fdbscan.near_changed")
+    syncs.blocked("fdbscan.unique")
     r = range(-_CELL_DILATE, _CELL_DILATE + 1)
     # arithmetic (not bitwise) composition: offsets have negative components
     if d == 2:
@@ -283,8 +293,13 @@ def _near_changed(keys: torch.Tensor, d: int, changed: torch.Tensor
         offs = [(dx << 42) + (dy << 21) + dz
                 for dx in r for dy in r for dz in r]
     offs = torch.tensor(offs, dtype=torch.int64, device=keys.device)
-    dilated = (changed_keys[:, None] + offs).ravel()
-    return torch.isin(keys, dilated)
+    syncs.blocked("fdbscan.near_changed")
+    dilated = torch.unique((changed_keys[:, None] + offs).ravel())
+    syncs.blocked("fdbscan.unique")
+    if dilated.numel() == 0:
+        return torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    at = torch.searchsorted(dilated, keys).clamp_max_(dilated.numel() - 1)
+    return dilated[at] == keys
 
 
 def _sweep_to_fixpoint(tree, segs, eps, core, labels0, *,
@@ -308,7 +323,7 @@ def _sweep_to_fixpoint(tree, segs, eps, core, labels0, *,
     """
     n = segs.n_points
     d = segs.pts.shape[1]
-    n_core = int(core.sum())
+    n_core = syncs.read(core.sum(), "fdbscan.sweep")
     # Query-side restriction only pays once the frontier is genuinely
     # small; above this the cell filter is overhead for nothing.
     small = max(_SMALL_FRONTIER_MIN, n_core // 4)
@@ -333,9 +348,11 @@ def _sweep_to_fixpoint(tree, segs, eps, core, labels0, *,
         vals0, absorbed = fused_init
         changed0 = core & (labels0 != vals0)
         wide = core & ~absorbed
-        if cell_keys is not None and int(changed0.sum()) <= small:
+        if (cell_keys is not None
+                and syncs.read(changed0.sum(), "fdbscan.sweep") <= small):
             near0 = (_near_changed(cell_keys, d, changed0)
-                     if bool(changed0.any()) else torch.zeros_like(core))
+                     if syncs.read(changed0.any(), "fdbscan.sweep")
+                     else torch.zeros_like(core))
             ids = _compact_ids(wide | (core & near0))
             lane_wide = wide[ids.long()]
             gather_mask = changed0
@@ -363,12 +380,15 @@ def _sweep_to_fixpoint(tree, segs, eps, core, labels0, *,
         _record_trace("sweep", engine, tr)
         sweeps += 1
         if collect_stats:
-            stats["frontier_per_sweep"].append(int(gather_mask.sum()))
+            stats["frontier_per_sweep"].append(
+                syncs.read(gather_mask.sum(), "fdbscan.stats"))
             stats["active_per_sweep"].append(ids.shape[0])
-            stats["iters_per_sweep"].append(int(tr.iters.sum()))
-            stats["evals_per_sweep"].append(int(tr.evals.sum()))
+            stats["iters_per_sweep"].append(
+                syncs.read(tr.iters.sum(), "fdbscan.stats"))
+            stats["evals_per_sweep"].append(
+                syncs.read(tr.evals.sum(), "fdbscan.stats"))
         labels = new
-        n_changed = int(changed.sum())
+        n_changed = syncs.read(changed.sum(), "fdbscan.sweep")
         if n_changed == 0:
             break
         if frontier:
@@ -415,10 +435,11 @@ def _finalize(labels_sorted, order, n):
     # representative (sorted index) -> original index for determinism
     rep_orig = torch.where(out >= 0, order[torch.clamp(out, 0, n - 1)], -1)
     uniq, inv = torch.unique(rep_orig, sorted=True, return_inverse=True)
-    has_noise = bool((rep_orig == -1).any())
+    syncs.blocked("fdbscan.unique")
+    has_noise = syncs.read((rep_orig == -1).any(), "fdbscan.finalize")
     compact = inv - int(has_noise)
     compact = torch.where(rep_orig == -1, -1, compact)
-    n_clusters = int((uniq >= 0).sum())
+    n_clusters = syncs.read((uniq >= 0).sum(), "fdbscan.finalize")
     return compact.to(torch.int32), n_clusters
 
 
@@ -510,8 +531,10 @@ def cluster_from_index(segs: grid.Segments, tree, eps: float, min_pts: int,
                        n_traversals=n_traversals, backend=backend)
     if with_stats:
         stats = dict(sweep_stats)
-        stats["first_pass_iters"] = int(first.iters.sum())
-        stats["first_pass_evals"] = int(first.evals.sum())
+        stats["first_pass_iters"] = syncs.read(first.iters.sum(),
+                                               "fdbscan.stats")
+        stats["first_pass_evals"] = syncs.read(first.evals.sum(),
+                                               "fdbscan.stats")
         return res, stats
     return res
 

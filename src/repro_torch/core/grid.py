@@ -26,6 +26,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.obs import syncs
+
 from . import morton
 
 
@@ -78,7 +80,7 @@ def _cell_coords(points: torch.Tensor, eps: float):
     extent = torch.clamp_min(hi - lo, torch.finfo(points.dtype).tiny)
     ncell = torch.ceil(extent / morton.f32(cell, points))
     over = ncell > 2**bits
-    capped = bool(over.any())
+    capped = syncs.read(over.any(), "grid.cell_coords")
     scale = torch.where(over, morton.f32(2.0**bits, points) / extent,
                         morton.f32(1.0 / cell, points))
     c = torch.floor((points - lo) * scale).to(torch.int32)
@@ -130,7 +132,7 @@ def build_segments_densebox(points: torch.Tensor, eps: float,
     new_cell = torch.ones(n, dtype=torch.bool, device=dev)
     new_cell[1:] = codes_sorted[1:] != codes_sorted[:-1]
     cell_rank = torch.cumsum(new_cell, 0) - 1   # dense cell rank per point
-    n_cells = int(cell_rank[-1]) + 1
+    n_cells = syncs.read(cell_rank[-1], "grid.densebox") + 1
     counts = _segment_reduce(torch.ones(n, dtype=torch.int32, device=dev),
                              cell_rank, n_cells, "sum")
     dense_pt = (counts[cell_rank] >= min_pts) & dense_valid
@@ -138,7 +140,7 @@ def build_segments_densebox(points: torch.Tensor, eps: float,
     # Segment boundaries: first member of a dense cell, or any loose point.
     is_new_seg = new_cell | ~dense_pt
     seg_of_point = (torch.cumsum(is_new_seg, 0) - 1).to(torch.int32)
-    m = int(seg_of_point[-1]) + 1
+    m = syncs.read(seg_of_point[-1], "grid.densebox") + 1
 
     idx = torch.arange(n, dtype=torch.int32, device=dev)
     seg_start = _segment_reduce(idx, seg_of_point, m, "amin")

@@ -10,7 +10,8 @@ construction here:
     written out over the whole vector of internal nodes at once,
   * bounding boxes are fitted bottom-up with level-synchronous bulk sweeps
     (a node becomes ready once both children are ready), which keeps the
-    fit deterministic and needs no atomics,
+    fit deterministic and needs no atomics; the host reads one flag a
+    level (``host_syncs_total{site="lbvh.fit_boxes"}``),
   * traversal is stackless: *ropes* (miss links = next node in DFS order
     when a subtree is skipped) give every query O(1) walk state.
 
@@ -22,6 +23,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.obs import syncs
 
 # Enough doublings/halvings to cover any practical primitive count (2**30).
 _SEARCH_ITERS = 31
@@ -182,7 +185,7 @@ def _fit_boxes(left, right, prim_lo, prim_hi):
                                    dtype=prim_hi.dtype, device=dev), prim_hi])
     ready = torch.cat([torch.zeros(n_int, dtype=torch.bool, device=dev),
                        torch.ones(n, dtype=torch.bool, device=dev)])
-    while not bool(ready[0]):
+    while not syncs.read(ready[0], "lbvh.fit_boxes"):
         can = ready[left] & ready[right] & ~ready[:n_int]
         new_lo = torch.minimum(box_lo[left], box_lo[right])
         new_hi = torch.maximum(box_hi[left], box_hi[right])
@@ -198,36 +201,39 @@ def _compute_ropes(left, right, parent, n_nodes):
     Resolved with bulk sweeps (value propagates one tree level per sweep).
     """
     dev = left.device
+    # constants are written with fill_ (a kernel argument): an item
+    # assignment copies its scalar from host memory and waits
     is_left = torch.zeros(n_nodes, dtype=torch.bool, device=dev)
-    is_left[left] = True
+    is_left.index_fill_(0, left.long(), True)
     sibling = torch.full((n_nodes,), -1, dtype=torch.int32, device=dev)
     sibling[left] = right
     miss = torch.where(is_left, sibling, -1).to(torch.int32)
-    miss[0] = -1  # root: end of traversal
+    miss[:1].fill_(-1)  # root: end of traversal
     done = is_left.clone()
-    done[0] = True
+    done[:1].fill_(True)
     par = torch.clamp_min(parent, 0)
-    while not bool(done.all()):
+    while not syncs.read(done.all(), "lbvh.ropes"):
         miss = torch.where(done, miss, miss[par])
-        miss[0] = -1
+        miss[:1].fill_(-1)
         done = done | done[par]
-        done[0] = True
+        done[:1].fill_(True)
     return miss
 
 
 def propagate_leaf_flags(tree: Tree, leaf_flags: torch.Tensor) -> torch.Tensor:
     """(2n-1,) per-node OR of ``leaf_flags`` over each subtree's leaves.
 
-    Level-synchronous bottom-up sweeps like ``_fit_boxes`` (no atomics).
-    Frontier sweeps use this to mark subtrees containing changed points so
-    the traversal can prune unchanged regions.
+    Level-synchronous bottom-up sweeps like ``_fit_boxes`` (no atomics;
+    the host reads one flag a sweep). Frontier sweeps use this to mark
+    subtrees containing changed points so the traversal can prune
+    unchanged regions.
     """
     n_int = tree.left.shape[0]
     flags = torch.cat([torch.zeros(n_int, dtype=torch.bool,
                                    device=leaf_flags.device), leaf_flags])
     while True:
         new_int = flags[tree.left] | flags[tree.right]
-        if bool((new_int == flags[:n_int]).all()):
+        if syncs.read((new_int == flags[:n_int]).all(), "lbvh.leaf_flags"):
             return flags
         flags = torch.cat([new_int, flags[n_int:]])
 

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.obs import syncs
+
 BITS_2D = 16
 BITS_3D = 10
 
@@ -46,7 +48,9 @@ def f32(value, like: torch.Tensor) -> torch.Tensor:
     ``number / tensor`` is ``reciprocal(tensor) * number`` on every device.
     Every division on the index path therefore goes through a device
     tensor, which rounds exactly like the reference's float32 division.
+    The copy from host memory waits for the device's queue to drain.
     """
+    syncs.blocked("morton.f32")
     return torch.tensor(value, dtype=torch.float32, device=like.device)
 
 

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.obs import syncs
+
 
 def jump_once(labels: torch.Tensor) -> torch.Tensor:
     return labels[labels]
@@ -36,10 +38,11 @@ def jump_to_fixpoint_np(labels: np.ndarray) -> np.ndarray:
 
 
 def jump_to_fixpoint(labels: torch.Tensor) -> torch.Tensor:
-    """Full path compression: every label points at its root."""
+    """Full path compression: every label points at its root. The host
+    reads one flag a jump."""
     while True:
         jumped = labels[labels]
-        if bool((jumped == labels).all()):
+        if syncs.read((jumped == labels).all(), "unionfind.jump"):
             return labels
         labels = jumped
 

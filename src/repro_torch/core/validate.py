@@ -25,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.obs import syncs
+
 
 def check_points(points, *, name: str = "points", allow_empty: bool = False,
                  dims: tuple = None, d: int = None) -> np.ndarray:
@@ -55,7 +57,7 @@ def check_points(points, *, name: str = "points", allow_empty: bool = False,
             rows named for the NaN/Inf case.
     """
     if isinstance(points, torch.Tensor):
-        points = points.detach().cpu().numpy()
+        points = syncs.read(points.detach(), "validate.points")
     try:
         arr = np.asarray(points)
     except (ValueError, TypeError) as e:

@@ -6,14 +6,27 @@ zero dependencies beyond PyTorch, disabled by default.
     JSON snapshot schema (``metrics.SCHEMA``, the reference package's).
   * :mod:`repro_torch.obs.trace` — nestable phase spans with CUDA-sync
     aware timing, exported as Chrome trace-event JSON (loads in Perfetto /
-    ``chrome://tracing``), plus a ``torch.profiler.record_function`` shim.
+    ``chrome://tracing``) with the offset that puts them on
+    ``torch.profiler``'s clock (``otherData["clock_offset_us"]``).
+  * :mod:`repro_torch.obs.syncs` — the host syncs the program makes,
+    counted by call site (``host_syncs_total``).
+  * :mod:`repro_torch.obs.names` — metric names shared with the reference
+    package, and the spans and counters only the port emits.
   * :func:`instrumented` — install both for a scoped block and restore
     the previous collectors afterwards (what the tests and the smoke run
     use).
 
 Until a collector is installed every instrumentation point in the library
 is a module-global load + ``None`` check: no device sync, no host read of
-a device value, and results are byte-equal either way.
+a device value, and results are byte-equal either way. An installed
+registry adds no sync either: a counter given a device tensor keeps a
+pending sum on the device and reads it once, at ``snapshot()``/``get()``.
+
+Annotation rule: each span enters ``torch.profiler.record_function(name)``
+while a profiler capture is live — a span of an installed tracer made
+with ``annotate=True``, and every span when no tracer is installed — so a
+capture names the program's phases; with no capture live and no tracer,
+a span is the shared no-op.
 
     from repro_torch.obs import metrics, trace
     reg = metrics.install()
@@ -26,9 +39,9 @@ from __future__ import annotations
 
 from contextlib import contextmanager
 
-from . import metrics, trace
+from . import metrics, names, syncs, trace
 
-__all__ = ["metrics", "trace", "instrumented"]
+__all__ = ["metrics", "names", "syncs", "trace", "instrumented"]
 
 
 @contextmanager

@@ -5,7 +5,9 @@ The registry is the sink every instrumented path reports into: the walks'
 ``evals``/``iters`` work counters, the dispatcher's plan, cache and index
 build counts, and fdbscan's sweep counts. Three metric kinds:
 
-  * :class:`Counter` — monotone float, ``inc(v)``;
+  * :class:`Counter` — monotone float, ``inc(v)``; ``v`` may be a device
+    tensor (a walk's summed work), kept as a pending sum on its device and
+    read to the host once, when the value is read (``snapshot``, ``get``);
   * :class:`Gauge`   — last-write-wins float, ``set(v)``;
   * :class:`Histogram` — quantile sketch over observations.  Buckets are
     log-spaced (DDSketch-style: bucket ``i`` covers ``(gamma^(i-1),
@@ -20,9 +22,10 @@ Every metric is a *family* keyed by label values (``backend=``,
 Disabled-by-default contract: the module-level helpers (:func:`inc`,
 :func:`set_gauge`, :func:`observe`) check one module global and return
 immediately when no registry is installed — an instrumentation point in
-a hot host loop costs a module-global load and a ``None`` check, and a
-caller that must read a device value to report it (a sync) reads it only
-after checking :func:`active`.
+a hot host loop costs a module-global load and a ``None`` check. A
+caller that reports a device value passes the tensor (a counter keeps it
+pending on the device), so an installed registry adds no sync to the
+path it observes; the sync happens when the snapshot is taken.
 
 The snapshot document is the reference package's (``SCHEMA``), so either
 package's validator reads the other's files. Zero dependencies beyond the
@@ -48,17 +51,35 @@ MAX_BUCKETS = 4096
 
 
 class Counter:
-    """Monotone counter. ``inc`` rejects negative increments."""
+    """Monotone counter. ``inc`` rejects negative increments.
 
-    __slots__ = ("value",)
+    A tensor increment (one element, e.g. ``evals.sum()``) is added to a
+    pending sum on its device, with no host read; reading ``value`` folds
+    the pending sum in (one read) and clears it. Tensor increments are not
+    checked for sign: that would be the read this defers.
+    """
+
+    __slots__ = ("_value", "_pending")
 
     def __init__(self):
-        self.value = 0.0
+        self._value = 0.0
+        self._pending = None
+
+    @property
+    def value(self) -> float:
+        if self._pending is not None:
+            self._value += float(self._pending)
+            self._pending = None
+        return self._value
 
     def inc(self, v: float = 1.0) -> None:
+        if hasattr(v, "is_floating_point"):          # a tensor: no read
+            v = v.double() if v.is_floating_point() else v.long()
+            self._pending = v if self._pending is None else self._pending + v
+            return
         if v < 0:
             raise ValueError(f"counter increment must be >= 0; got {v}")
-        self.value += v
+        self._value += v
 
 
 class Gauge:

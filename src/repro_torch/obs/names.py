@@ -1,5 +1,6 @@
 """Canonical metric names for the serving subsystem (the reference
-package's names, kept so both packages report under one spelling).
+package's names, kept so both packages report under one spelling), and
+the spans and counters that only the port emits.
 
 One place to spell them, so the server, the CLI, the benchmarks, and the
 dashboards cannot drift apart.  All names follow the registry's
@@ -37,11 +38,23 @@ SERVE_SNAPSHOT_EXACT_PROBES = "serve_snapshot_exact_probes_total"
 SERVE_APPLY_FAILURES = "serve_apply_failures_total"
 SERVE_TENANT_ACTIVE_POINTS = "serve_tenant_active_points"   # gauge
 
-# ---- streaming handle (recompile accounting) --------------------------- #
-# Incremented once per *new* (mode, level shape, probe bucket) program
-# signature seen by StreamingDBSCAN's query path; flat at steady state —
-# the witness that probe-batch padding keeps the jit cache warm.
-STREAM_QUERY_RECOMPILES = "stream_query_recompiles_total"
+# ---- the port's own vocabulary (the reference package has none of it) -- #
+# Host reads of device values and operations that block the host on the
+# device, by call site (``obs.syncs``): the syncs a clustering call or a
+# stream step makes, whether or not a collector is installed.
+HOST_SYNCS = "host_syncs_total"
+
+# Counters and spans only the port emits; parity tests drop them before
+# comparing a run's collectors with the reference's.
+PORT_COUNTERS = (HOST_SYNCS,)
+# ``plan.hash``: the content hash inside ``plan``; ``build.grid`` (the
+# grid or segments and the Morton sort), ``build.tree`` (the LBVH: its
+# topology, box fit and ropes) and ``build.pack`` (the walk kernel's
+# layout) inside ``build``; ``stream.wal`` (a log record's
+# device-to-host copy, write, flush and fsync) inside the stream operation
+# that logs it.
+PORT_SPANS = ("plan.hash", "build.grid", "build.tree", "build.pack",
+              "stream.wal")
 
 ALL = tuple(v for k, v in sorted(globals().items())
             if k.isupper() and isinstance(v, str))

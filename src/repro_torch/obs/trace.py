@@ -19,13 +19,26 @@ production mode: watches are recorded as ``"none"`` and nothing ever
 blocks. A device error that surfaces at the sync propagates: a span never
 hides a failed launch.
 
-Profiler shim: with ``annotate=True`` every span also enters a
-``torch.profiler.record_function``, so under a profiler capture (e.g.
-:func:`profiler_session`) the same phase names appear on the profiler's
-timeline; without a capture the annotation records nothing.
+Profiler annotations: with ``annotate=True`` every span of an installed
+tracer also enters a ``torch.profiler.record_function``, so under a
+profiler capture (e.g. :func:`profiler_session`) the same phase names
+appear on the profiler's timeline; without a capture the annotation
+records nothing. With no tracer installed, a span under a live capture is
+that annotation alone (nothing is recorded by the tracer, nothing is
+synchronised), so a capture names the program's phases whether or not a
+tracer is installed.
 
-Disabled-by-default: with no tracer installed, :func:`span` returns a
-shared no-op context manager — one module-global load per call site.
+Clocks: a tracer's ``ts`` are microseconds since the tracer was made, on
+the host's monotonic clock. The exported document's
+``otherData["clock_offset_us"]`` is the offset that puts them on the Unix
+epoch's clock, which ``torch.profiler``'s Chrome trace uses (its ``ts``
+are microseconds since the epoch less its ``baseTimeNanoseconds / 1000``,
+where it gives one): ``ts + clock_offset_us - baseTimeNanoseconds / 1000``
+overlays a span on a capture of the same process.
+
+Disabled-by-default: with no tracer installed and no capture live,
+:func:`span` returns a shared no-op context manager — one module-global
+load and one check of the profiler's flag per call site.
 """
 from __future__ import annotations
 
@@ -36,6 +49,7 @@ import time
 from contextlib import contextmanager
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # Version tag of the exported document; carried in the trace metadata.
 TRACE_SCHEMA = "repro.obs.trace/v1"
@@ -81,6 +95,10 @@ class Span:
         if self._tracer.sync:
             self._watched.extend(values)
 
+    def set(self, **attrs) -> None:
+        """Add attributes known only once the span's work has run."""
+        self.attrs.update(attrs)
+
     def __enter__(self) -> "Span":
         self._tracer._stack().append(self)
         if self._tracer.annotate:
@@ -113,6 +131,9 @@ class _NoopSpan:
     def watch(self, *values) -> None:
         pass
 
+    def set(self, **attrs) -> None:
+        pass
+
     def __enter__(self) -> "_NoopSpan":
         return self
 
@@ -121,6 +142,23 @@ class _NoopSpan:
 
 
 _NOOP = _NoopSpan()
+
+
+class _Annotation(_NoopSpan):
+    """A span with no tracer under a live profiler capture: the
+    ``record_function`` annotation alone (no event, no sync)."""
+
+    __slots__ = ("_rf",)
+
+    def __init__(self, name: str):
+        self._rf = torch.profiler.record_function(name)
+
+    def __enter__(self) -> "_Annotation":
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._rf.__exit__(*exc)
 
 
 class Tracer:
@@ -141,6 +179,10 @@ class Tracer:
         self.events: list[dict] = []
         self.n_dropped = 0
         self._epoch = time.perf_counter()
+        # the Unix-epoch time of _epoch, in microseconds (see the module
+        # docstring: the offset onto a profiler capture's clock)
+        self._epoch_unix_us = time.time_ns() / 1e3 - (
+            time.perf_counter() - self._epoch) * 1e6
         self._lock = threading.Lock()
         self._local = threading.local()
 
@@ -175,7 +217,8 @@ class Tracer:
             "displayTimeUnit": "ms",
             "otherData": {"schema": TRACE_SCHEMA,
                           "sync": "blocked" if self.sync else "none",
-                          "dropped_events": self.n_dropped},
+                          "dropped_events": self.n_dropped,
+                          "clock_offset_us": self._epoch_unix_us},
         }
 
     def export(self, path: str) -> dict:
@@ -222,10 +265,13 @@ def active() -> Tracer | None:
 
 
 def span(name: str, **attrs):
-    """A span context manager on the installed tracer, or the shared
-    no-op when tracing is off (the disabled fast path)."""
+    """A span context manager on the installed tracer; with none, the
+    profiler annotation ``name`` while a ``torch.profiler`` capture is
+    live, else the shared no-op (the disabled fast path)."""
     t = _active
     if t is None:
+        if _autograd_profiler._is_profiler_enabled:
+            return _Annotation(name)
         return _NOOP
     return t.span(name, **attrs)
 

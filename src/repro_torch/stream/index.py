@@ -84,6 +84,7 @@ from repro_torch.core.fdbscan import DBSCANResult
 from repro_torch.core.validate import check_points
 from repro_torch.kernels.ref import tile_sum_sq
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import syncs
 from repro_torch.obs import trace as obs_trace
 from repro_torch.stream import durability
 
@@ -110,20 +111,6 @@ _TOMB_MAX_FRAC = 0.5
 # anywhere) from ever *matching* a sentinel in masked modes and keeps the
 # box tests cheap; unmasked count mode is never run against a padded level.
 _SENTINEL_EPS = 3.0
-
-# Walk signatures (mode, d, probe bucket, level size, cap) seen in this
-# process, under the reference's bucketing (fdbscan._pad_size). The
-# reference compiles one program per signature; the port compiles nothing
-# per shape, but counts new signatures the same way, so
-# ``stream_query_recompiles_total`` reads the same in both packages.
-_seen_programs: set = set()
-
-
-def _note_program(sig: tuple) -> None:
-    if sig not in _seen_programs:
-        _seen_programs.add(sig)
-        obs_metrics.inc("stream_query_recompiles_total")
-
 
 class _Level(NamedTuple):
     """One level of the tiered index (main tier, delta tier, or buffer)."""
@@ -300,7 +287,8 @@ class StreamingDBSCAN:
                     # gid-0 record, otherwise recovery cold-starts empty,
                     # every later record sits past a gap, and acknowledged
                     # inserts would be unrecoverable
-                    self._wal.append(self._pts.cpu().numpy(), 0)
+                    with obs_trace.span("stream.wal"):
+                        self._wal.append(self._pts.cpu().numpy(), 0)
                 if self.window is not None:
                     self.expire(self.n_points - self.window)
 
@@ -437,7 +425,8 @@ class StreamingDBSCAN:
         obs_metrics.inc("stream_inserted_points_total", float(b))
         durability.barrier("pre-insert")    # crash: batch never durable
         if self._wal is not None:
-            self._wal.append(batch.cpu().numpy(), self.n_points)
+            with obs_trace.span("stream.wal"):
+                self._wal.append(batch.cpu().numpy(), self.n_points)
             durability.barrier("wal-durable")   # crash: durable, unapplied
         n_old = self.n_points
         gid0 = n_old
@@ -511,8 +500,10 @@ class StreamingDBSCAN:
         with obs_trace.span("stream.delete", k=gids.numel()):
             durability.barrier("pre-delete")  # crash: delete never durable
             if self._wal is not None:
-                self._wal.append_delete(gids.cpu().numpy(), self.n_points,
-                                        d=self._pts.shape[1])
+                with obs_trace.span("stream.wal"):
+                    self._wal.append_delete(gids.cpu().numpy(),
+                                            self.n_points,
+                                            d=self._pts.shape[1])
                 durability.barrier("wal-durable-delete")
             self._apply_delete(gids)
         self.n_deletes += 1
@@ -539,7 +530,8 @@ class StreamingDBSCAN:
         with obs_trace.span("stream.expire", k=gids.numel()):
             durability.barrier("pre-delete")
             if self._wal is not None:
-                self._wal.append_expire(wm, d=self._pts.shape[1])
+                with obs_trace.span("stream.wal"):
+                    self._wal.append_expire(wm, d=self._pts.shape[1])
                 durability.barrier("wal-durable-delete")
             self._apply_delete(gids)
         self.n_deletes += 1
@@ -1105,10 +1097,6 @@ class StreamingDBSCAN:
             vv = torch.where(ok, vals[gv][None].to(torch.int64), INT_MAX)
             acc = torch.minimum(init.to(torch.int64), vv.amin(1))
             return acc.to(torch.int32), ok.sum(1)
-        # every distinct (mode, level shape, probe bucket, cap) tuple is
-        # one compiled walk program in the reference; see _note_program
-        _note_program((mode, qpts.shape[1], fdbscan._pad_size(k),
-                       lvl.gids.shape[0], cap))
         node_mask = None
         if mode == "count":         # count needs every resident; the
             cb = traversal.CountVisitor(cap=cap)    # others prune to mask
@@ -1157,16 +1145,20 @@ class StreamingDBSCAN:
 
         From sweep 2 on this is exactly ``fdbscan._sweep_to_fixpoint``'s
         loop, started from the old fixpoint instead of from scratch."""
-        if not bool(q_mask.any()):
+        if not syncs.read(q_mask.any(), "stream.repair"):
             return                  # no seed cores => no edges to repair
         d = self._pts.shape[1]
         core = self._core
         gather = core               # sweep 1 gathers over every core point
         labels = self._labels
         first = True
-        with obs_trace.span("stream.repair", seed=int(q_mask.sum())):
+        # the seed's size is read for a tracer only: a read of its own
+        attrs = ({} if obs_trace.active() is None
+                 else {"seed": int(q_mask.sum())})
+        with obs_trace.span("stream.repair", **attrs):
             while True:
                 q = torch.nonzero(q_mask).flatten()
+                syncs.blocked("stream.repair")
                 if q.numel() == 0:
                     break
                 acc = self._full(q.numel(), INT_MAX)
@@ -1183,7 +1175,7 @@ class StreamingDBSCAN:
                 labels = new
                 self.n_repair_sweeps += 1
                 obs_metrics.inc("stream_repair_sweeps_total")
-                if not bool(changed.any()):
+                if not syncs.read(changed.any(), "stream.repair"):
                     break
                 gather = changed & core
                 q_mask = core & fdbscan._near_changed(keys, d, changed)

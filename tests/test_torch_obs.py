@@ -25,7 +25,7 @@ from repro.obs import metrics as jmetrics, trace as jtrace  # noqa: E402
 import repro_torch  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.core import dispatch  # noqa: E402
-from repro_torch.obs import metrics, trace  # noqa: E402
+from repro_torch.obs import metrics, names, trace  # noqa: E402
 from repro_torch.obs import validate as obs_validate  # noqa: E402
 
 from conftest import separated_points  # noqa: E402
@@ -275,6 +275,38 @@ def test_validator_cli(tmp_path):
 # parity with the reference package's instrumentation                   #
 # --------------------------------------------------------------------- #
 
+def reference_snapshot(doc: dict, drop=()) -> dict:
+    """A snapshot without the port's own counters (``names.PORT_COUNTERS``)
+    and the families named in ``drop``: what both packages record."""
+    gone = set(names.PORT_COUNTERS) | set(drop)
+    return dict(doc, metrics=[m for m in doc["metrics"]
+                              if m["name"] not in gone])
+
+
+def reference_events(events) -> list:
+    """A trace's events without the port's own spans
+    (``names.PORT_SPANS``), in order."""
+    return [e for e in events if e["name"] not in names.PORT_SPANS]
+
+
+def parent_of(events, ev):
+    """The innermost other event whose interval holds ``ev``'s."""
+    t0, t1 = ev["ts"], ev["ts"] + ev["dur"]
+    outer = [e for e in events if e is not ev and e["tid"] == ev["tid"]
+             and e["ts"] <= t0 and e["ts"] + e["dur"] >= t1]
+    return min(outer, key=lambda e: e["dur"], default=None)
+
+
+def assert_nested(events, child: str, parents) -> int:
+    """Every ``child`` span lies directly inside one of ``parents``;
+    returns how many there are."""
+    found = [e for e in events if e["name"] == child]
+    for e in found:
+        p = parent_of(events, e)
+        assert p is not None and p["name"] in parents, (child, p)
+    return len(found)
+
+
 @pytest.fixture(scope="module")
 def parity_runs(tmp_path_factory):
     """The same separated points clustered by ``repro.dbscan`` and by
@@ -301,7 +333,11 @@ def parity_runs(tmp_path_factory):
 def test_counters_equal_reference(parity_runs):
     r = parity_runs
     assert r["port"].backend == r["ref"].backend != "tiled"
-    jdoc, doc = r["jreg"].snapshot(), r["reg"].snapshot()
+    jdoc, full = r["jreg"].snapshot(), r["reg"].snapshot()
+    assert [m["name"] for m in full["metrics"]
+            if m["name"] not in [n["name"] for n in jdoc["metrics"]]] \
+        == list(names.PORT_COUNTERS)
+    doc = reference_snapshot(full)
     assert [m["name"] for m in doc["metrics"]] == [
         "dbscan_runs_total", "dbscan_sweeps", "dispatch_index_builds_total",
         "dispatch_plan_cache_misses_total", "dispatch_plans_total",
@@ -316,13 +352,20 @@ def test_counters_equal_reference(parity_runs):
 
 def test_spans_equal_reference(parity_runs):
     r = parity_runs
-    names = [e["name"] for e in r["tr"].events]
-    assert names == [e["name"] for e in r["jtr"].events]
-    assert names[:3] == ["build", "plan", "traverse"]
-    assert names[-3:] == ["border", "finalize", "dbscan"]
-    assert names.count("sweep") == r["port"].n_sweeps - 1
-    assert ([e["args"] for e in r["tr"].events]
-            == [e["args"] for e in r["jtr"].events])
+    events = reference_events(r["tr"].events)
+    span_names = [e["name"] for e in events]
+    assert span_names == [e["name"] for e in r["jtr"].events]
+    assert span_names[:3] == ["build", "plan", "traverse"]
+    assert span_names[-3:] == ["border", "finalize", "dbscan"]
+    assert span_names.count("sweep") == r["port"].n_sweeps - 1
+    assert [e["args"] for e in events] == [e["args"] for e in r["jtr"].events]
+    # the port's own spans, each where it belongs (no walk layout on the
+    # CPU, so no build.pack)
+    every = r["tr"].events
+    assert assert_nested(every, "plan.hash", ("plan",)) == 1
+    assert assert_nested(every, "build.grid", ("build",)) == 1
+    assert assert_nested(every, "build.tree", ("build",)) == 1
+    assert assert_nested(every, "build", ("plan",)) == 1
 
 
 def test_files_pass_both_validators(parity_runs):
@@ -360,3 +403,117 @@ def test_profiler_session_shows_spans(tmp_path):
             torch.ones(8).sum()
     doc = json.loads((tmp_path / "trace.json").read_text())
     assert any(e.get("name") == "phase_x" for e in doc["traceEvents"])
+
+
+# --------------------------------------------------------------------- #
+# one clock with the profiler; no observer syncs                        #
+# --------------------------------------------------------------------- #
+
+def _profile(fn):
+    """Run ``fn`` under a CPU ``torch.profiler`` capture; the capture's
+    Chrome trace document."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)
+    finally:
+        os.unlink(path)
+
+
+def test_span_without_tracer_annotates_a_capture():
+    assert trace.active() is None
+
+    def work():
+        with trace.span("phase_y", i=1) as sp:
+            sp.watch(torch.ones(2))
+            sp.set(backend="x")
+            trace.watch(torch.ones(2))
+            torch.ones(8).sum()
+
+    doc = _profile(work)
+    ann = [e for e in doc["traceEvents"] if e.get("name") == "phase_y"]
+    assert [e.get("cat") for e in ann] == ["user_annotation"]
+    # no capture live: the shared no-op again, and nothing was installed
+    assert trace.span("a") is trace.span("b") is trace._NOOP
+    assert trace.active() is None
+
+
+def test_tracer_spans_land_on_the_capture_clock():
+    tr = trace.Tracer(sync=True, annotate=True)
+
+    def work():
+        for i in range(3):
+            with tr.span("phase_z", i=i):
+                torch.ones(64).sum()
+
+    doc = _profile(work)
+    base_us = doc.get("baseTimeNanoseconds", 0) / 1e3
+    ann = sorted(e["ts"] for e in doc["traceEvents"]
+                 if e.get("name") == "phase_z"
+                 and e.get("cat") == "user_annotation")
+    offset = tr.to_dict()["otherData"]["clock_offset_us"]
+    mine = [e["ts"] + offset - base_us for e in tr.events]
+    assert len(ann) == len(mine) == 3
+    assert max(abs(a - b) for a, b in zip(ann, mine)) < 1e3
+    trace.validate_chrome_trace(tr.to_dict())
+
+
+def test_device_tensor_counter_resolves_at_snapshot():
+    reg = metrics.Registry()
+    fam = reg.counter("work_total", labels=("phase",))
+    child = fam.labels(phase="sweep")
+    child.inc(torch.tensor([3, 4], dtype=torch.int32).sum())
+    child.inc(2)
+    child.inc(torch.tensor(5, dtype=torch.int64))
+    assert child._pending is not None        # nothing read yet
+    doc = reg.snapshot()
+    assert doc["metrics"][0]["series"] == [{"labels": {"phase": "sweep"},
+                                            "value": 14.0}]
+    assert child._pending is None
+    child.inc(torch.tensor(0.5))
+    assert reg.get("work_total", phase="sweep").value == 14.5
+    metrics.validate_snapshot(reg.snapshot())
+
+
+# The parity input's host syncs by site: each read of a device value and
+# each operation whose output size the host must wait for, as the card
+# would make them.
+PARITY_SYNCS = {
+    "dispatch.dense_fraction": 1, "dispatch.hash": 1, "fdbscan.finalize": 2,
+    "fdbscan.near_changed": 10, "fdbscan.nonzero": 7, "fdbscan.sweep": 9,
+    "fdbscan.unique": 11, "grid.cell_coords": 2, "grid.densebox": 2,
+    "lbvh.fit_boxes": 14, "lbvh.leaf_flags": 70, "lbvh.ropes": 9,
+    "morton.f32": 6, "unionfind.jump": 19}
+
+
+def test_host_syncs_pinned_and_registry_changes_nothing(parity_runs):
+    r = parity_runs
+    got = {s["labels"]["site"]: s["value"]
+           for m in r["reg"].snapshot()["metrics"]
+           if m["name"] == names.HOST_SYNCS for s in m["series"]}
+    assert got == PARITY_SYNCS
+    # a registry alone (the benchmark's profiled stretch): same answer,
+    # same sweeps, same syncs
+    pts = separated_points(1100, 2, eps=0.05, seed=9)
+    dispatch.clear_cache()
+    reg = metrics.install()
+    try:
+        res = repro_torch.dbscan(pts, 0.05, 5, device="cpu")
+    finally:
+        metrics.uninstall()
+        dispatch.clear_cache()
+    bare = r["bare"]
+    assert torch.equal(res.labels, bare.labels)
+    assert torch.equal(res.core_mask, bare.core_mask)
+    assert (res.n_sweeps, res.n_clusters) == (bare.n_sweeps, bare.n_clusters)
+    again = {s["labels"]["site"]: s["value"] for m in reg.snapshot()["metrics"]
+             if m["name"] == names.HOST_SYNCS for s in m["series"]}
+    assert again == PARITY_SYNCS

@@ -24,12 +24,17 @@ from repro.stream import index as jindex  # noqa: E402
 import repro_torch  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.core import dispatch  # noqa: E402
-from repro_torch.stream import index as tindex  # noqa: E402
 
+from test_torch_obs import (parent_of, reference_events,  # noqa: E402
+                            reference_snapshot)
 from test_torch_stream import (BATCH, BLOBS, BUFFER_MAX,  # noqa: E402
                                EPS_BLOBS, MP_BLOBS, N_BOOT,
                                _assert_same_snapshot, _assert_same_state,
                                _port, _run_ops)
+
+# A counter only the reference keeps: it counts its compiled walk programs,
+# and the port compiles none.
+REFERENCE_ONLY = ("stream_query_recompiles_total",)
 
 
 def test_cold_start_window_matches_reference():
@@ -117,7 +122,6 @@ def test_obs_counters_and_spans_equal_reference(tmp_path):
     pts = BLOBS
     dispatch.clear_cache()
     jdispatch.clear_cache()
-    tindex._seen_programs.clear()
     jindex._seen_programs.clear()
     runs = {}
     for side, inst, make in (("ref", jobs.instrumented, JStream),
@@ -135,16 +139,25 @@ def test_obs_counters_and_spans_equal_reference(tmp_path):
             h.snapshot()
             h.checkpoint()
             h._wal.close()
-        runs[side] = (reg.snapshot(), [e["name"] for e in tr.events],
+        events = list(tr.events)
+        shared = reference_events(events) if side == "port" else events
+        runs[side] = (reg.snapshot(), [e["name"] for e in shared],
                       [{k: v for k, v in e["args"].items() if k != "path"}
-                       for e in tr.events])
-    (jdoc, jnames, jargs), (doc, names, args) = runs["ref"], runs["port"]
-    assert _timing_free(doc) == _timing_free(jdoc)
+                       for e in shared], events)
+    (jdoc, jnames, jargs, _), (doc, names, args, every) = (runs["ref"],
+                                                           runs["port"])
+    assert (_timing_free(reference_snapshot(doc))
+            == _timing_free(reference_snapshot(jdoc, drop=REFERENCE_ONLY)))
     assert names == jnames and args == jargs
     fams = {m["name"] for m in doc["metrics"]}
     assert {"stream_inserts_total", "stream_repair_sweeps_total",
-            "stream_compactions_total", "stream_query_recompiles_total",
-            "wal_appends_total", "checkpoints_total"} <= fams
+            "stream_compactions_total", "wal_appends_total",
+            "checkpoints_total", "host_syncs_total"} <= fams
+    assert not set(REFERENCE_ONLY) & fams
     assert {"stream.insert", "stream.repair", "stream.delete",
             "stream.expire", "stream.merge", "stream.snapshot",
             "stream.checkpoint"} <= set(names)
+    # one WAL record a logged operation, its span inside that operation
+    wal = [e for e in every if e["name"] == "stream.wal"]
+    assert [parent_of(every, e)["name"] for e in wal] == [
+        "stream.insert", "stream.delete", "stream.expire"]

@@ -32,6 +32,7 @@ from repro_torch.core import dispatch, fdbscan, grid, lbvh  # noqa: E402
 from repro_torch.core import traversal, tune  # noqa: E402
 from repro_torch.data import pointclouds  # noqa: E402
 from repro_torch.kernels import traverse as kt  # noqa: E402
+from repro_torch.obs import names as obs_names  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = np.load(os.path.join(HERE, "golden", "golden.npz"))
@@ -137,6 +138,9 @@ def test_tuned_metrics_match_reference(pts, monkeypatch):
     # kernel's launches on the card (chip_smoke.py holds those)
     jdoc["metrics"] = [m for m in jdoc["metrics"]
                        if not m["name"].startswith("pallas_kernel_")]
+    # the port's own counters (its host syncs) have no reference twin
+    doc["metrics"] = [m for m in doc["metrics"]
+                      if m["name"] not in obs_names.PORT_COUNTERS]
     assert doc == jdoc
     engines = {s["labels"]["engine"] for m in doc["metrics"]
                if m["name"].startswith("traversal_") for s in m["series"]}
