@@ -68,7 +68,8 @@ from repro_torch.core import fdbscan, grid, lbvh, traversal  # noqa: E402
 from repro_torch.core import validate  # noqa: E402
 from repro_torch.data import pointclouds  # noqa: E402
 from repro_torch import obs  # noqa: E402
-from repro_torch.kernels import knn as kknn, pairwise, ref  # noqa: E402
+from repro_torch.kernels import knn as kknn, nodeflags  # noqa: E402
+from repro_torch.kernels import pairwise, ref  # noqa: E402
 from repro_torch.kernels import traverse as kt, walkpack  # noqa: E402
 from repro_torch.launch import mesh as lmesh, roofline  # noqa: E402
 
@@ -315,6 +316,7 @@ def launch_ms(module, fn, reps: int) -> tuple[float, int]:
 def reset_counts() -> None:
     kt.walk.launches = 0
     kknn.walk.launches = 0
+    nodeflags.node_flags.launches = 0
     walkpack.pack_index.builds = 0
     pairwise.pairwise_count.launches = 0
     pairwise.pairwise_minlabel.launches = 0
@@ -324,6 +326,7 @@ def reset_counts() -> None:
 def counts() -> dict:
     return {"walk": kt.walk.launches,
             "knn": kknn.walk.launches,
+            "node_flags": nodeflags.node_flags.launches,
             "pairwise_count": pairwise.pairwise_count.launches,
             "pairwise_minlabel": pairwise.pairwise_minlabel.launches,
             "plain_walk_runs": traversal.traverse.runs,
@@ -565,8 +568,11 @@ def _spec_matrix(segs, tree):
         "f32": torch.rand(n, generator=g).to(DEV)}
     gather = (torch.rand(n, generator=g) < 0.6).to(DEV)
     wide = (torch.rand(n, generator=g) < 0.3).to(DEV)
-    node_mask = lbvh.propagate_leaf_flags(
-        tree, (torch.rand(m, generator=g) < 0.5).to(DEV))
+    leaf = (torch.rand(m, generator=g) < 0.5).to(DEV)
+    node_mask = lbvh.propagate_leaf_flags(tree, leaf)
+    check(torch.equal(node_mask,
+                      lbvh.propagate_leaf_flags_by_level(tree, leaf)),
+          "node flags: the kernel differs from the level loop")
     all_nodes = torch.ones(2 * m - 1, dtype=torch.bool, device=DEV)
     nodes = {"none": {}, "node_mask": dict(node_mask=node_mask),
              "node_mask_wide": dict(node_mask=node_mask,
@@ -735,16 +741,54 @@ def _walk_timing(dset, label, args, kw, plain_ms: float) -> dict:
                 library_ms=None)
 
 
-def phase_main_walk_check(runs) -> tuple[float, dict]:
+def _node_flags_timing(dset, tree, segs, masks) -> dict:
+    """Time and bound of the node-flag kernel under the core mask of one
+    full-size run (its first node mask, the most points flagged), and its
+    time under the run's smallest frontier; the loop it replaces is timed
+    on the same input, host reads included."""
+    n = segs.n_points
+    out = {}
+    small = min((f for f in masks[1:] if bool(f.any())),
+                key=lambda f: int(f.sum()), default=masks[0])
+    for name, f in (("core", masks[0]), ("frontier", small)):
+        def kernel(f=f):
+            return fdbscan._frontier_node_mask(tree, segs, f)
+
+        def loop(f=f):
+            return lbvh.propagate_leaf_flags_by_level(tree, f,
+                                                      segs.seg_of_point)
+        ms, launches = launch_ms(nodeflags, kernel, 5)
+        check(launches == 5, f"node flags: {launches} launches timed")
+        plain_ms = cuda_ms(loop, 3)
+        flagged, set_nodes = int(f.sum()), int(kernel().sum())
+        # the flags, the leaf of each flagged point, the parent of each set
+        # node, and the output (memset)
+        n_bytes = n + 4 * flagged + 4 * set_nodes + tree.parent.shape[0]
+        b_ms, b_by = bound(n_bytes, 0)
+        say("node-flags-time", dataset=dset, n=n, mask=name,
+            flagged=flagged, set_nodes=set_nodes, ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.3f}", bound_ms=f"{b_ms:.5f}",
+            bound_by=b_by, bytes=n_bytes)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None)
+    return out["core"]
+
+
+def phase_main_walk_check(runs) -> tuple[float, dict, float, dict]:
     """Replay each full-size scenario's clustering run with some of its
     walks also run by the plain engine on the same inputs, exact equality:
     the fused first pass, the first two sweeps (the split first sweep and a
-    frontier sweep over compacted lanes) and the border gather. The first
+    frontier sweep over compacted lanes) and the border gather. Every node
+    mask of the replay (core mask, frontiers, border) is also held byte for
+    byte against the level loop the node-flag kernel replaces. The first
     pass and first sweep of each scenario are also timed; the first
-    scenario's first pass is the walk kernel's time in the kernel table.
-    Runs after the counted main path, so neither engine's runs here enter
-    the launch counts."""
-    err, timing = 0.0, {}
+    scenario's first pass is the walk kernel's time in the kernel table,
+    and its core mask the node-flag kernel's. Runs after the counted main
+    path, so neither engine's runs here enter the launch counts.
+
+    Returns the walks' largest error, the walk kernel's timing, the node
+    masks' largest error and the node-flag kernel's timing."""
+    err, nf_err, timing, nf_timing = 0.0, 0.0, {}, None
     for dset, n, eps, mp, pts, plan, _, _ in runs:
         if plan is None:
             continue
@@ -752,7 +796,19 @@ def phase_main_walk_check(runs) -> tuple[float, dict]:
         repro_torch.dbscan(pts, eps, mp, query_plan=plan)
         n_walks = kt.walk.launches - before
         picks = {0, 1, 2, n_walks - 1}
-        calls = []
+        calls, masks = [], []
+
+        def node_mask_checked(tree, segs, changed):
+            nonlocal nf_err
+            got = mask_fn(tree, segs, changed)
+            want = lbvh.propagate_leaf_flags_by_level(tree, changed,
+                                                      segs.seg_of_point)
+            e = max_abs_err([(got, want)])
+            check(e == 0, f"{dset}: node mask {len(masks)} differs from "
+                          f"the level loop")
+            nf_err = max(nf_err, e)
+            masks.append(changed)
+            return got
 
         def checked(*args, **kw):
             nonlocal err
@@ -786,15 +842,26 @@ def phase_main_walk_check(runs) -> tuple[float, dict]:
             return k
 
         fdbscan._walk, walk_fn = checked, fdbscan._walk
+        fdbscan._frontier_node_mask, mask_fn = (node_mask_checked,
+                                                fdbscan._frontier_node_mask)
         try:
             res = repro_torch.dbscan(pts, eps, mp, query_plan=plan)
         finally:
             fdbscan._walk = walk_fn
+            fdbscan._frontier_node_mask = mask_fn
         check(len(calls) == n_walks, f"{dset}: {len(calls)} walks in the "
                                      f"checked run, {n_walks} before")
         check(res.n_traversals == n_walks, f"{dset}: {n_walks} walks for "
                                            f"{res.n_traversals} traversals")
-    return err, timing[(MAIN[0][0], 0)]
+        check(len(masks) > res.n_sweeps, f"{dset}: {len(masks)} node masks "
+                                         f"for {res.n_sweeps} sweeps")
+        say("node-flags-check", dataset=dset, n=n, masks=len(masks),
+            flagged_max=max(int(f.sum()) for f in masks),
+            flagged_min=min(int(f.sum()) for f in masks), max_abs_err=nf_err)
+        if nf_timing is None:
+            nf_timing = _node_flags_timing(dset, plan.tree, plan.segs, masks)
+        del masks
+    return err, timing[(MAIN[0][0], 0)], nf_err, nf_timing
 
 
 def phase_walk_totals(runs) -> None:
@@ -1057,6 +1124,8 @@ def run_main_path():
 
 def check_main_path(runs, seen: dict) -> None:
     check(seen["walk"] > 0, "the walk kernel never ran on the main path")
+    check(seen["node_flags"] > 0,
+          "the node-flag kernel never ran on the main path")
     check(seen["plain_walk_runs"] == 0,
           f"the plain walk ran {seen['plain_walk_runs']} times on the card")
     n_plans = sum(plan is not None for *_, plan, _, _ in runs)
@@ -3123,7 +3192,8 @@ def main() -> None:
     seen = counts()
     say("counts", path="dbscan", **seen)
     check_main_path(runs, seen)
-    main_err, walk_t = timed("main-walk-check", phase_main_walk_check, runs)
+    main_err, walk_t, nf_err, nf_t = timed("main-walk-check",
+                                           phase_main_walk_check, runs)
     timed("walk-totals", phase_walk_totals, runs)
 
     reset_counts()
@@ -3184,6 +3254,7 @@ def main() -> None:
         phase_profile(runs)
     say("total-time", seconds=f"{time.perf_counter() - t_all:.1f}")
     walk_t["max_abs_err"] = max(walk_err, main_err, tune_err)
+    nf_t["max_abs_err"] = nf_err
     knn_t["max_abs_err"] = max(knn_err, knn_t["max_abs_err"])
     for name in ("pairwise_count", "pairwise_minlabel"):
         tile_t[name]["max_abs_err"] = max(tile_t[name]["max_abs_err"],
@@ -3214,6 +3285,14 @@ def main() -> None:
              replaces="none: no Pallas kernel (the reference's k-NN is an "
                       "XLA while-loop, src/repro/core/traversal.py:663)",
              launches=seen_nb["knn"], **knn_t),
+        dict(name="node_flags", route="cuda", source=f"{csrc}/nodeflags.cu",
+             replaces="none: no Pallas kernel (the reference's level loop "
+                      "propagate_leaf_flags, src/repro/core/lbvh.py)",
+             launches=(seen["node_flags"] + seen_nb["node_flags"]
+                       + seen_st["node_flags"] + seen_sv["node_flags"]
+                       + seen_tu["node_flags"] + seen_sh["node_flags"]
+                       + seen_rg["node_flags"]),
+             **nf_t),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,8 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = {"walk": "walk.cu", "pairwise": "pairwise.cu", "knn": "knn.cu"}
+SOURCES = {"walk": "walk.cu", "pairwise": "pairwise.cu", "knn": "knn.cu",
+           "nodeflags": "nodeflags.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]

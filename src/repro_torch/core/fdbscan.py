@@ -144,11 +144,6 @@ def _record_trace(phase: str, engine: str, tr) -> None:
                     phase=phase, engine=engine)
 
 
-def _segment_max_bool(flags, segs: grid.Segments):
-    return grid._segment_reduce(flags.to(torch.int32), segs.seg_of_point,
-                                segs.n_segments, "amax").to(torch.bool)
-
-
 def _unify_dense(labels, segs: grid.Segments):
     """Equalize labels within dense segments (paper: one UNION per cell)."""
     seg_min = grid._segment_reduce(labels, segs.seg_of_point,
@@ -258,7 +253,7 @@ def _post_sweep(tree, segs, labels, core, ids, acc):
 
 def _frontier_node_mask(tree, segs, changed):
     """Per-node 'subtree holds a changed point' flag for descent pruning."""
-    return lbvh.propagate_leaf_flags(tree, _segment_max_bool(changed, segs))
+    return lbvh.propagate_leaf_flags(tree, changed, segs.seg_of_point)
 
 
 # A pair within eps spans at most ceil(eps / cell_edge) cells per axis;

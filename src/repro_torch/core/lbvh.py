@@ -220,17 +220,41 @@ def _compute_ropes(left, right, parent, n_nodes):
     return miss
 
 
-def propagate_leaf_flags(tree: Tree, leaf_flags: torch.Tensor) -> torch.Tensor:
-    """(2n-1,) per-node OR of ``leaf_flags`` over each subtree's leaves.
+def propagate_leaf_flags(tree: Tree, flags: torch.Tensor,
+                         item_leaf: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """(2n-1,) per-node OR of ``flags`` over each subtree's leaves.
 
-    Level-synchronous bottom-up sweeps like ``_fit_boxes`` (no atomics;
-    the host reads one flag a sweep). Frontier sweeps use this to mark
-    subtrees containing changed points so the traversal can prune
-    unchanged regions.
+    ``flags`` holds one flag a leaf, or, with ``item_leaf`` (int32, the
+    leaf of each item: ``Segments.seg_of_point``), one an item. Frontier
+    sweeps use this to mark subtrees containing changed points so the
+    traversal can prune unchanged regions. CUDA tensors take the node-flag
+    kernel (``kernels.nodeflags``: one launch, no host read); CPU tensors
+    the reference's loop, :func:`propagate_leaf_flags_by_level`. Both give
+    the same bytes.
     """
+    if flags.is_cuda:
+        from repro_torch.kernels.nodeflags import node_flags
+        return node_flags(tree.parent, flags, item_leaf)
+    return propagate_leaf_flags_by_level(tree, flags, item_leaf)
+
+
+def propagate_leaf_flags_by_level(tree: Tree, flags: torch.Tensor,
+                                  item_leaf: torch.Tensor | None = None
+                                  ) -> torch.Tensor:
+    """:func:`propagate_leaf_flags` as the reference computes it, on any
+    device: the items' flags folded onto their leaves by a segment
+    maximum, then level-synchronous bottom-up sweeps like ``_fit_boxes``
+    (no atomics; the host reads one flag a sweep)."""
     n_int = tree.left.shape[0]
+    if item_leaf is not None:
+        # every leaf holds an item, so no leaf keeps the empty fill
+        flags = torch.empty(n_int + 1, dtype=torch.int32,
+                            device=flags.device).scatter_reduce_(
+            0, item_leaf.long(), flags.to(torch.int32), "amax",
+            include_self=False).to(torch.bool)
     flags = torch.cat([torch.zeros(n_int, dtype=torch.bool,
-                                   device=leaf_flags.device), leaf_flags])
+                                   device=flags.device), flags])
     while True:
         new_int = flags[tree.left] | flags[tree.right]
         if syncs.read((new_int == flags[:n_int]).all(), "lbvh.leaf_flags"):

@@ -4,13 +4,15 @@
   entry point every clustering phase calls;
 * ``knn`` — the k-NN walk kernel (``csrc/knn.cu``) behind
   ``neighbors.knn``;
+* ``nodeflags`` — the node-flag kernel (``csrc/nodeflags.cu``) behind the
+  frontier sweeps' node masks on the card;
 * ``pairwise`` — the tile kernels (``csrc/pairwise.cu``), with their plain
   versions in ``ref``;
 * ``ops`` — the tiled DBSCAN backend over the tile kernels.
 """
 from .pairwise import pairwise_count, pairwise_minlabel
 from .ops import dbscan_tiled
-from . import knn, ref, traverse
+from . import knn, nodeflags, ref, traverse
 
 __all__ = ["pairwise_count", "pairwise_minlabel", "dbscan_tiled", "knn",
-           "ref", "traverse"]
+           "nodeflags", "ref", "traverse"]

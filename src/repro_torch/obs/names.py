@@ -43,10 +43,13 @@ SERVE_TENANT_ACTIVE_POINTS = "serve_tenant_active_points"   # gauge
 # device, by call site (``obs.syncs``): the syncs a clustering call or a
 # stream step makes, whether or not a collector is installed.
 HOST_SYNCS = "host_syncs_total"
+# Launches of the node-flag kernel (``kernels.nodeflags``): one a frontier
+# node mask built on the card, where the CPU runs the reference's loop.
+NODE_FLAG_LAUNCHES = "node_flag_launches_total"
 
 # Counters and spans only the port emits; parity tests drop them before
 # comparing a run's collectors with the reference's.
-PORT_COUNTERS = (HOST_SYNCS,)
+PORT_COUNTERS = (HOST_SYNCS, NODE_FLAG_LAUNCHES)
 # ``plan.hash``: the content hash inside ``plan``; ``build.grid`` (the
 # grid or segments and the Morton sort), ``build.tree`` (the LBVH: its
 # topology, box fit and ropes) and ``build.pack`` (the walk kernel's

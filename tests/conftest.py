@@ -1,4 +1,4 @@
-"""Shared fixtures + the ``fast`` marker.
+"""Shared fixtures + the ``fast``, ``fault`` and ``cuda`` markers.
 
 Tier-1 iteration: ``pytest -m fast`` (or ``make test-fast``) runs the quick
 algorithmic subset — core DBSCAN correctness, the traversal engine, the
@@ -26,6 +26,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "fault: subprocess kill-based crash/recovery tests for "
         "the streaming durability layer (run with `pytest -m fault`)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one; run on "
+        "the card with `pytest -m cuda tests`)")
 
 
 def pytest_collection_modifyitems(config, items):

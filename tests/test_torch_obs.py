@@ -334,9 +334,13 @@ def test_counters_equal_reference(parity_runs):
     r = parity_runs
     assert r["port"].backend == r["ref"].backend != "tiled"
     jdoc, full = r["jreg"].snapshot(), r["reg"].snapshot()
+    # the port's own counters a CPU run records: its host syncs (the
+    # node-flag kernel launches only on the card)
     assert [m["name"] for m in full["metrics"]
             if m["name"] not in [n["name"] for n in jdoc["metrics"]]] \
-        == list(names.PORT_COUNTERS)
+        == [names.HOST_SYNCS]
+    assert set(names.PORT_COUNTERS) == {names.HOST_SYNCS,
+                                        names.NODE_FLAG_LAUNCHES}
     doc = reference_snapshot(full)
     assert [m["name"] for m in doc["metrics"]] == [
         "dbscan_runs_total", "dbscan_sweeps", "dispatch_index_builds_total",

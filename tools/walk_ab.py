@@ -49,6 +49,18 @@ median of ``--reps``). A tree without the tuner times its default plan
 only (``default``), the parent's side of the comparison. Every schedule's
 labels are held equal to the first's.
 
+``--only nodeflags`` times the node-flag kernel (``csrc/nodeflags.cu``,
+through ``fdbscan._frontier_node_mask``) against the level loop it replaces
+on the card (``lbvh.propagate_leaf_flags_by_level`` with the points'
+leaves), on the fdbscan index of hacc_like's 2,097,152 points (4,194,303
+nodes), under the core mask, a random half of the points and random
+frontiers of 256 and 65,536 points: the kernel's device time (memset and
+launch, profiler, mean of ``--reps``), CUDA events around either (median of
+``--reps``; the loop's include its host reads), the loop's device time,
+and the kernel's byte bound (flags, the leaf of each flagged point, the
+parent of each set node and the output, at 3.35 TB/s). Exits 1 unless the
+two give the same bytes. Needs a tree with the kernel.
+
 Prints the card's name and power limit and one line ``[times] {json}``
 with the medians and every sample.
 
@@ -85,6 +97,8 @@ KNN_SHAPES = [("hacc_all_k16", "hacc_like", 2_097_152, 16, None, None),
               ("hacc_4096_external_k16", "hacc_like", 2_097_152, 16, 4096,
                None)]
 INT_MAX = 2**31 - 1
+# the node-flag kernel's random frontiers (points)
+NODEFLAG_FRONTIERS = (256, 65_536)
 
 
 def card() -> str:
@@ -396,14 +410,57 @@ def knn(reps: int) -> dict:
     return out
 
 
+def nodeflags(port, fdbscan, pointclouds, reps: int) -> dict:
+    lbvh = importlib.import_module("repro_torch.core.lbvh")
+    dev = torch.device("cuda", 0)
+    dset, n, eps, mp = MAIN[0]
+    plan = port.plan(pointclouds.load(dset, n), eps, mp,
+                     algorithm="fdbscan", device=dev)
+    tree, segs = plan.tree, plan.segs
+    core = fdbscan._fused_first_pass(tree, segs, eps, mp,
+                                     walk_index=plan.walk_index)[0]
+    g = torch.Generator(device="cpu").manual_seed(5)
+    sets = {"core": core, "half": (torch.rand(n, generator=g) < 0.5).to(dev)}
+    for k in NODEFLAG_FRONTIERS:
+        f = torch.zeros(n, dtype=torch.bool, device=dev)
+        f[torch.randperm(n, generator=g)[:k].to(dev)] = True
+        sets[f"frontier_{k}"] = f
+    nodes = tree.parent.shape[0]
+    out = {"dataset": dset, "points": n, "nodes": nodes}
+    for name, f in sets.items():
+        def kernel(f=f):
+            return fdbscan._frontier_node_mask(tree, segs, f)
+
+        def loop(f=f):
+            return lbvh.propagate_leaf_flags_by_level(tree, f,
+                                                      segs.seg_of_point)
+
+        want = loop()
+        if not torch.equal(kernel(), want):
+            sys.exit(f"walk_ab: node flags differ from the level loop "
+                     f"({name})")
+        flagged, set_nodes = int(f.sum()), int(want.sum())
+        n_bytes = n + 4 * flagged + 4 * set_nodes + nodes
+        out[name] = {
+            "flagged": flagged, "set_nodes": set_nodes,
+            "kernel_device_ms": device_ms(kernel, reps),
+            "kernel_ms": statistics.median(events_ms(kernel, 1)
+                                           for _ in range(reps)),
+            "loop_ms": statistics.median(events_ms(loop, 1)
+                                         for _ in range(reps)),
+            "loop_device_ms": device_ms(loop, 1),
+            "bytes": n_bytes, "bound_ms": n_bytes / 3.35e9}
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True, help="the tree's src directory")
     ap.add_argument("--reps", type=int, default=7)
-    ap.add_argument("--only", choices=["tiles", "knn", "tune"],
+    ap.add_argument("--only", choices=["tiles", "knn", "tune", "nodeflags"],
                     help="time only the tile kernels and the tiled path, "
-                         "only the k-NN kernel, or only the tuner's "
-                         "schedules")
+                         "only the k-NN kernel, only the tuner's "
+                         "schedules, or only the node-flag kernel")
     ap.add_argument("--out", help="write the result as JSON to this file")
     ap.add_argument("--expect", help="a result of another tree (--out): "
                                      "exit 1 unless the k-NN digests equal")
@@ -423,6 +480,8 @@ def main() -> None:
         out["tiles"] = tiles(port, a.reps)
     if a.only in (None, "knn"):
         out["knn"] = knn(a.reps)
+    if a.only == "nodeflags":
+        out["nodeflags"] = nodeflags(port, fdbscan, pointclouds, a.reps)
     print("[times] " + json.dumps(out), flush=True)
     if a.out:
         with open(a.out, "w") as f:
