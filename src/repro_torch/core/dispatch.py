@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.obs import metrics as obs_metrics
-from repro_torch.obs import syncs
+from repro_torch.obs import names, syncs
 from repro_torch.obs import trace as obs_trace
 
 from . import fdbscan, grid, lbvh, tune
@@ -499,6 +499,12 @@ def dbscan(points, eps: float, min_pts: int, *, algorithm: str = "auto",
                                              walk_index=p.walk_index)
         sp.watch(res.labels, res.core_mask)
     obs_metrics.inc("dbscan_runs_total", backend=p.backend)
+    if obs_metrics.active() is not None:
+        # a pending device sum, read with the registry: no sync here
+        obs_metrics.inc(names.DBSCAN_POINTS, n, backend=p.backend)
+        obs_metrics.inc(names.DBSCAN_DENSE_POINTS,
+                        0 if p.segs is None else p.segs.dense_pt.sum(),
+                        backend=p.backend)
     obs_metrics.observe("dbscan_sweeps", res.n_sweeps, backend=p.backend)
     return res
 

@@ -42,7 +42,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.obs import metrics as obs_metrics
-from repro_torch.obs import syncs
+from repro_torch.obs import names, syncs
 from repro_torch.obs import trace as obs_trace
 
 from . import grid, lbvh, traversal, unionfind
@@ -132,15 +132,22 @@ def _walk_kw(phase: dict, walk_index) -> dict:
                                              "walk_index": walk_index}
 
 
-def _record_trace(phase: str, engine: str, tr) -> None:
+def _record_trace(phase: str, engine: str, tr, segs: grid.Segments,
+                  ids=None) -> None:
     """Fold a walk's work counters into the installed metrics registry as
     device sums, read when the registry is (no sync here); with no
-    registry, the walk's result is never touched."""
+    registry, the walk's result is never touched. ``ids`` are the walk's
+    lanes (sorted point ids; None: every point), whose points outside
+    every dense cell give the loose evaluations."""
     if obs_metrics.active() is None:
         return
     obs_metrics.inc("traversal_evals_total", tr.evals.sum(),
                     phase=phase, engine=engine)
     obs_metrics.inc("traversal_iters_total", tr.iters.sum(),
+                    phase=phase, engine=engine)
+    loose = ~(segs.dense_pt if ids is None else segs.dense_pt[ids.long()])
+    obs_metrics.inc(names.TRAVERSAL_LOOSE_EVALS,
+                    torch.where(loose, tr.evals, 0).sum(),
                     phase=phase, engine=engine)
 
 
@@ -372,7 +379,7 @@ def _sweep_to_fixpoint(tree, segs, eps, core, labels0, *,
             new, changed, changed_flags = _post_sweep(tree, segs, labels,
                                                       core, ids, tr.acc)
             sp.watch(new, changed)
-        _record_trace("sweep", engine, tr)
+        _record_trace("sweep", engine, tr, segs, ids)
         sweeps += 1
         if collect_stats:
             stats["frontier_per_sweep"].append(
@@ -416,7 +423,8 @@ def _assign_borders(tree, segs, eps, core, core_labels, *,
                                     node_mask=_frontier_node_mask(tree, segs,
                                                                   core),
                                     walk_index=walk_index, phase=phase)
-    _record_trace("border", _engine_name(segs, phase.get("engine")), tr)
+    _record_trace("border", _engine_name(segs, phase.get("engine")), tr,
+                  segs, ids)
     labels = torch.where(core, core_labels, gathered)
     return torch.where(labels == INT_MAX, -1, labels)
 
@@ -494,7 +502,7 @@ def cluster_from_index(segs: grid.Segments, tree, eps: float, min_pts: int,
         core, labels0, vals0, absorbed, first = _fused_first_pass(
             tree, segs, eps, min_pts, phase=fp, walk_index=walk_index)
         sp.watch(core, labels0)
-    _record_trace("first_pass", engine, first)
+    _record_trace("first_pass", engine, first, segs)
     if tune is not None:
         # the pass's per-query loop trips are the depth oracle of every
         # later reorder="depth" walk over this plan

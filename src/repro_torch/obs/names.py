@@ -46,10 +46,20 @@ HOST_SYNCS = "host_syncs_total"
 # Launches of the node-flag kernel (``kernels.nodeflags``): one a frontier
 # node mask built on the card, where the CPU runs the reference's loop.
 NODE_FLAG_LAUNCHES = "node_flag_launches_total"
+# The points a ``dbscan`` call clusters, and of those the points in dense
+# cells of its plan's index (0 for a plain index), by backend: counted
+# beside ``dbscan_runs_total``.
+DBSCAN_POINTS = "dbscan_points_total"
+DBSCAN_DENSE_POINTS = "dbscan_dense_points_total"
+# The distance tests of walk lanes whose point lies outside every dense
+# cell, by phase and engine: the part of ``traversal_evals_total`` that no
+# dense short-circuit can cut.
+TRAVERSAL_LOOSE_EVALS = "traversal_loose_evals_total"
 
 # Counters and spans only the port emits; parity tests drop them before
 # comparing a run's collectors with the reference's.
-PORT_COUNTERS = (HOST_SYNCS, NODE_FLAG_LAUNCHES)
+PORT_COUNTERS = (HOST_SYNCS, NODE_FLAG_LAUNCHES, DBSCAN_POINTS,
+                 DBSCAN_DENSE_POINTS, TRAVERSAL_LOOSE_EVALS)
 # ``plan.hash``: the content hash inside ``plan``; ``build.grid`` (the
 # grid or segments and the Morton sort), ``build.tree`` (the LBVH: its
 # topology, box fit and ropes) and ``build.pack`` (the walk kernel's

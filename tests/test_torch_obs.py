@@ -334,13 +334,16 @@ def test_counters_equal_reference(parity_runs):
     r = parity_runs
     assert r["port"].backend == r["ref"].backend != "tiled"
     jdoc, full = r["jreg"].snapshot(), r["reg"].snapshot()
-    # the port's own counters a CPU run records: its host syncs (the
-    # node-flag kernel launches only on the card)
+    # the port's own counters a CPU run records: the points clustered and
+    # those in dense cells, its host syncs and the loose lanes' distance
+    # tests (the node-flag kernel launches only on the card)
     assert [m["name"] for m in full["metrics"]
             if m["name"] not in [n["name"] for n in jdoc["metrics"]]] \
-        == [names.HOST_SYNCS]
-    assert set(names.PORT_COUNTERS) == {names.HOST_SYNCS,
-                                        names.NODE_FLAG_LAUNCHES}
+        == [names.DBSCAN_DENSE_POINTS, names.DBSCAN_POINTS,
+            names.HOST_SYNCS, names.TRAVERSAL_LOOSE_EVALS]
+    assert set(names.PORT_COUNTERS) == {
+        names.HOST_SYNCS, names.NODE_FLAG_LAUNCHES, names.DBSCAN_POINTS,
+        names.DBSCAN_DENSE_POINTS, names.TRAVERSAL_LOOSE_EVALS}
     doc = reference_snapshot(full)
     assert [m["name"] for m in doc["metrics"]] == [
         "dbscan_runs_total", "dbscan_sweeps", "dispatch_index_builds_total",
@@ -521,3 +524,42 @@ def test_host_syncs_pinned_and_registry_changes_nothing(parity_runs):
     again = {s["labels"]["site"]: s["value"] for m in reg.snapshot()["metrics"]
              if m["name"] == names.HOST_SYNCS for s in m["series"]}
     assert again == PARITY_SYNCS
+
+
+def _series(snap: dict, name: str) -> dict:
+    return {tuple(sorted(s["labels"].items())): s["value"]
+            for m in snap["metrics"] if m["name"] == name
+            for s in m["series"]}
+
+
+@pytest.mark.parametrize("algorithm", ["fdbscan-densebox", "fdbscan"])
+def test_dense_point_counters_read_the_plans_index(algorithm):
+    # tight blobs over a sparse background: a DenseBox index has dense
+    # cells, a plain one none
+    rng = np.random.default_rng(5)
+    blobs = rng.normal(0, 0.01, size=(3, 300, 2)) + rng.uniform(
+        0.2, 0.8, size=(3, 1, 2))
+    pts = np.concatenate([blobs.reshape(-1, 2), rng.uniform(
+        0, 1, size=(300, 2))]).astype(np.float32)
+    dispatch.clear_cache()
+    try:
+        p = dispatch.plan(pts, 0.05, 5, algorithm, device="cpu")
+        with obs.instrumented() as (reg, _):
+            res = repro_torch.dbscan(pts, 0.05, 5, algorithm=algorithm,
+                                     device="cpu")
+            snap = reg.snapshot()
+    finally:
+        dispatch.clear_cache()
+    key = (("backend", res.backend),)
+    assert res.backend == algorithm
+    assert _series(snap, names.DBSCAN_POINTS) == {key: 1200.0}
+    dense = _series(snap, names.DBSCAN_DENSE_POINTS)
+    assert dense == {key: float(p.segs.dense_pt.sum())}
+    assert (dense[key] > 0) == (algorithm == "fdbscan-densebox")
+    # per phase and engine, the loose lanes' tests are a part of all the
+    # walks' tests, and all of them where no point is in a dense cell
+    loose = _series(snap, names.TRAVERSAL_LOOSE_EVALS)
+    evals = _series(snap, "traversal_evals_total")
+    assert set(loose) == set(evals)
+    assert all(loose[k] <= evals[k] for k in evals)
+    assert (loose == evals) == (algorithm == "fdbscan")
